@@ -3,9 +3,10 @@
 Port of ``nvbio_tpu/models/mapper.py`` for the single-end path:
 
     seed -> FM backward search (+ k-mer LUT) -> rarity-first select ->
-    compacted SSA locate -> compacted banded Gotoh extension (K3) ->
-    top-2 + MAPQ -> escalation round -> winners-only directions DP (K2)
-    + run-jump walk -> native CIGAR/MD builder -> SAM
+    compacted SSA locate -> compacted banded Gotoh extension (K3; K4
+    for reads longer than LONG_THRESHOLD) -> top-2 + MAPQ -> escalation
+    round -> winners-only directions DP (K2; K4 for long reads) +
+    run-jump walk -> native CIGAR/MD builder -> SAM
 
 Every stage runs on the device of the index tensors (``"cuda"`` or
 ``"cpu"``, named by the caller).  The two DP stages go through the
@@ -36,7 +37,8 @@ from nvbio_tpu.native import ops_batch_native
 from ..alignment.types import NEG_INF, AlignmentType, gap_penalties
 from ..alignment.walk import runjump_walk
 from ..fmindex.index import FMIndex, SSA, backward_search, locate
-from ..ops.banded_dp import (banded_directions, banded_score_packed,
+from ..ops.banded_dp import (LONG_THRESHOLD, banded_directions,
+                             banded_score, banded_score_packed,
                              pack_genome_words, window_slices)
 from ..strings.seeds import (extract_seeds_per_read, extract_uniform_seeds,
                              num_uniform_seeds)
@@ -131,9 +133,12 @@ def _compact_slots(ok, vals, capacity: int):
 
 
 def extend_candidates(fm: FMIndex, gwords, all_reads, all_quals, lens2, cand,
-                      *, params: MapperParams):
-    """Diagonal dedupe + banded Gotoh extension (K3) of located
-    candidates.  Returns dict of (R, 2C) tensors plus cand_overflow."""
+                      *, params: MapperParams, genome=None):
+    """Diagonal dedupe + banded Gotoh extension of located candidates:
+    K3 over packed windows, or, for reads longer than LONG_THRESHOLD, K4
+    over symbol windows of ``genome`` (the padded genome, Mapper.genome)
+    as the reference routes them.  Returns dict of (R, 2C) tensors plus
+    cand_overflow."""
     R2, L = all_reads.shape
     R = R2 // 2
     C = params.max_candidates
@@ -165,9 +170,18 @@ def extend_candidates(fm: FMIndex, gwords, all_reads, all_quals, lens2, cand,
     pquals = all_quals[ridx_c]
     plens = torch.where(lane_ok, lens2[ridx_c], 0)  # pad lanes exit early
     tlens = (n - ws_c).clamp(0, LT)
-    res = banded_score_packed(pats, plens, gwords, ws_c, tlens, pquals,
-                              scheme=params.scheme, atype=params.atype,
-                              band_w=W)
+    if L > LONG_THRESHOLD:
+        if genome is None:
+            raise ValueError(
+                f"reads of {L} bp (> {LONG_THRESHOLD}) extend over symbol "
+                "windows: pass the padded genome")
+        res = banded_score(pats, plens, window_slices(genome, ws_c, LT),
+                           tlens, pquals, scheme=params.scheme,
+                           atype=params.atype, band_w=W)
+    else:
+        res = banded_score_packed(pats, plens, gwords, ws_c, tlens, pquals,
+                                  scheme=params.scheme, atype=params.atype,
+                                  band_w=W)
     # scatter back to the (C, R2) slot layout; dropped slots NEG_INF
     back = cpos.clamp(0, EXT_CAP - 1)
     scores = torch.where(keep, res["score"][back], NEG_INF).reshape(C, R2).t()
@@ -265,7 +279,8 @@ def select_and_locate(fm: FMIndex, ssa: SSA, lo, hi, offsets, sval, L, *,
 
 
 def candidate_stage(fm, ssa, gwords, reads, lens, quals, *,
-                    params: MapperParams, lut=None, uniform_shift: int = -1):
+                    params: MapperParams, lut=None, uniform_shift: int = -1,
+                    genome=None):
     """Strands -> seeds -> search -> select -> locate -> extend: per-
     candidate (R, 2C) tensors (columns [0, C) forward, [C, 2C) reverse)."""
     if params.seed_mismatches >= 1:
@@ -279,7 +294,7 @@ def candidate_stage(fm, ssa, gwords, reads, lens, quals, *,
     cand, ovf, n_drop = select_and_locate(fm, ssa, lo, hi, offsets, sval, L,
                                           params=params)
     out = extend_candidates(fm, gwords, all_reads, all_quals, lens2, cand,
-                            params=params)
+                            params=params, genome=genome)
     out["locate_dropped"] = n_drop
     out["overflow"] = (ovf.reshape(2, R).any(dim=0)
                        | out.pop("cand_overflow"))
@@ -323,13 +338,16 @@ def top2_finish(cands, lens, params: MapperParams):
 
 
 def map_batch(fm: FMIndex, ssa: SSA, gwords, reads, lens, quals, *,
-              params: MapperParams, lut=None, uniform_shift: int = -1):
+              params: MapperParams, lut=None, uniform_shift: int = -1,
+              genome=None):
     """Forward mapping step: per-read best/second alignments + MAPQ.
-    Returns dict of (R,) tensors: aligned, score, second, has_second,
-    strand, win_start, t_end, p_end, mapq (+ locate_dropped, overflow)."""
+    ``genome`` (the padded genome) is needed for reads longer than
+    LONG_THRESHOLD.  Returns dict of (R,) tensors: aligned, score,
+    second, has_second, strand, win_start, t_end, p_end, mapq (+
+    locate_dropped, overflow)."""
     cands = candidate_stage(fm, ssa, gwords, reads, lens, quals,
                             params=params, lut=lut,
-                            uniform_shift=uniform_shift)
+                            uniform_shift=uniform_shift, genome=genome)
     return top2_finish(cands, lens, params)
 
 
@@ -344,8 +362,9 @@ def _max_cigar_runs(L: int, params: MapperParams) -> int:
 
 def traceback_walk_windows(texts, tlens, reads, lens, quals, strand, *,
                            params: MapperParams, active=None):
-    """Winners-only directions DP (K2) + run-jump walk over pre-gathered
-    windows (R, L + 2 * band_w).  Returns (dp result, walk dict)."""
+    """Winners-only directions DP (K2; K4 beyond LONG_THRESHOLD) +
+    run-jump walk over pre-gathered windows (R, L + 2 * band_w).
+    Returns (dp result, walk dict)."""
     R, L = reads.shape
     W = params.band_w
     rc_reads, rc_quals = _revcomp_batch(reads, lens, quals)
@@ -517,7 +536,8 @@ class Mapper:
         ushift = (seqs.shape[1] - int(lens.max())
                   if len(lens) and lens.min() == lens.max() else -1)
         fwd = map_batch(self.fm, self.ssa, self.gwords, jr, jl, jq,
-                        params=params, lut=self.lut, uniform_shift=ushift)
+                        params=params, lut=self.lut, uniform_shift=ushift,
+                        genome=self.genome)
         res, walk = traceback_walk_batch(
             self.genome, self.n, jr, jl, jq, fwd["win_start"],
             fwd["strand"], params=params, active=fwd["aligned"])

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/banded_gotoh.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  The library lands in ``_build/``
-beside this file (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads the cached library.  Nothing here runs at import time.
+``nvcc`` compiles each source in ``csrc/`` for ``sm_90a`` (one process
+per source, all started together), then links the objects into one
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library lands in
+``_build/`` beside this file (listed in ``.gitignore``), named by a hash
+of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the cached library (the hash covers the shared
+header ``csrc/gotoh_common.cuh`` too).  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -19,32 +22,39 @@ import threading
 import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_DIR, "csrc", "banded_gotoh.cu")
+SOURCES = [os.path.join(_DIR, "csrc", name)
+           for name in ("banded_gotoh.cu", "long_gotoh.cu")]
+HEADERS = [os.path.join(_DIR, "csrc", "gotoh_common.cuh")]
 BUILD_DIR = os.path.join(_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
-#: what the last build reported: seconds, the nvcc command and its
+#: what the last build reported: seconds, the nvcc commands and their
 #: ptxas output (registers, spills per kernel); None when loaded cached
 build_info: dict | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # scheme... = match, mm_min, mm_max, n_penalty, eo, ee, fo, fe
+_SCORE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8 + [_P, _P]
+_PACKED = ([_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I]
+           + [_I] * 8 + [_P, _P])
+_DIRS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_I] * 8 + [_P, _P, _P]
 _SIGNATURES = {
     # pats, quals, plens, texts, tlens, nb, lp, lt, band_w, atype,
     # scheme..., out, stream
-    "k1_banded_score": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_I] * 8 + [_P, _P],
+    "k1_banded_score": _SCORE,
+    "k4_long_score": _SCORE,
     # pats, quals, plens, gwords, n_words, win_start, tlens, nb, lp,
     # band_w, atype, scheme..., out, stream
-    "k3_banded_score_packed": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P,
-                               _I, _I, _I, _I] + [_I] * 8 + [_P, _P],
-    # as k1, plus dirs before the stream
-    "k2_banded_directions": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [_I] * 8 + [_P, _P, _P],
+    "k3_banded_score_packed": _PACKED,
+    "k4_long_score_packed": _PACKED,
+    # as the score entry points, plus dirs before the stream
+    "k2_banded_directions": _DIRS,
+    "k4_long_directions": _DIRS,
 }
 
 
@@ -62,32 +72,56 @@ def find_nvcc() -> str:
 
 def _lib_path() -> str:
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES + HEADERS:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"banded_gotoh_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"kernels_{h.hexdigest()[:16]}.so")
+
+
+def _run(procs):
+    """Wait for (cmd, Popen) pairs; raise with nvcc's output on failure.
+    Returns the stderr of each (ptxas reports there)."""
+    errs = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+        errs.append(err)
+    return errs
 
 
 def build() -> str:
-    """Compile the kernels if no library for this source exists; returns
-    the library's path.  Raises RuntimeError with nvcc's output when the
-    compile fails."""
+    """Compile the kernels if no library for these sources exists;
+    returns the library's path.  Raises RuntimeError with nvcc's output
+    when a compile fails."""
     global build_info
     path = _lib_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    ptxas = _run(procs)
+    tmp = f"{path}.{tag}"
+    link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+    _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, path)
-    build_info = {"seconds": time.perf_counter() - t0, "cmd": cmd,
-                  "ptxas": proc.stderr}
+    build_info = {"seconds": time.perf_counter() - t0,
+                  "cmds": [cmd for cmd, _ in procs] + [link],
+                  "ptxas": "\n".join(ptxas)}
     return path
 
 

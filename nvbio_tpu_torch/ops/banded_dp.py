@@ -12,10 +12,15 @@ Port of ``nvbio_tpu/ops/banded_dp.py``.  Three kernels, all in
   the plain version's ``(R, Lp, 2w+1)`` layout, the mapper's traceback
   DP (replaces ``banded_directions_pallas``, ``banded_dp.py:620``).
 
+``route()`` picks the kernel for a call's shape: patterns longer than
+LONG_THRESHOLD go to K4 (``long_dp.py``, ``csrc/long_gotoh.cu``), as in
+the JAX package, and so do bands wider than K1-K3's register capacity
+(MAX_BAND cells), with identical outputs.
+
 Each wrapper takes its plain PyTorch version (``alignment/batched.py``)
 for tensors on the CPU, and only then.  For CUDA tensors it launches the
-kernel or raises; nothing falls back.  Each wrapper counts its launches
-in its ``launches`` attribute.
+kernel or raises; nothing falls back.  Each kernel counts its launches
+in the ``launches`` attribute of its entry in KERNELS.
 """
 
 from __future__ import annotations
@@ -25,11 +30,14 @@ import torch
 
 from ..alignment.batched import (PAD_SYMBOL, banded_directions_batch,
                                  banded_score_batch)
-from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
-from . import _build
+from ..alignment.types import AlignmentType, GotohScheme
+from . import _build, _launch, long_dp
 
-#: widest band (2 * band_w + 1) the CUDA kernels are instantiated for
+#: widest band (2 * band_w + 1) K1-K3 are instantiated for; wider bands
+#: go to K4's band-parallel kernel
 MAX_BAND = 64
+#: patterns longer than this go to K4 (``nvbio_tpu/ops/banded_dp.py:48``)
+LONG_THRESHOLD = 512
 #: tail words appended by pack_genome_words so window reads past the
 #: genome end stay inside the array
 PACK_TAIL_WORDS = 256
@@ -87,50 +95,26 @@ def banded_score_packed_plain(patterns, plens, packed, win_start, tlens,
                               scheme=scheme, atype=atype, band_w=band_w)
 
 
-def _on_cpu(*tensors) -> bool:
-    """True for CPU inputs, False for CUDA inputs; raises on a mix."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cpu"
+_on_cpu = _launch.on_cpu
 
 
 def _launch_inputs(patterns, plens, tlens, quals, band_w):
     if 2 * band_w + 1 > MAX_BAND or band_w < 0:
         raise ValueError(
-            f"band_w={band_w}: the CUDA kernels are instantiated for bands "
-            f"up to {MAX_BAND} cells (band_w <= {(MAX_BAND - 1) // 2})")
-    nb, lp = patterns.shape
-    dev = patterns.device
-    if quals is None:
-        quals = torch.full((nb, lp), 40, dtype=torch.uint8, device=dev)
-    if quals.shape != patterns.shape:
-        raise ValueError(f"quals {tuple(quals.shape)} != patterns "
-                         f"{tuple(patterns.shape)}")
-    if plens.shape != (nb,) or tlens.shape != (nb,):
-        raise ValueError("plens and tlens must be (NB,)")
-    return (patterns.to(torch.int8).contiguous(),
-            quals.to(torch.uint8).contiguous(),
-            plens.to(torch.int32).contiguous(),
-            tlens.to(torch.int32).contiguous(),
-            torch.empty((3, nb), dtype=torch.int32, device=dev))
+            f"band_w={band_w}: K1-K3 are instantiated for bands up to "
+            f"{MAX_BAND} cells (band_w <= {(MAX_BAND - 1) // 2}); route() "
+            "sends wider bands to K4")
+    return _launch.stage_inputs(patterns, plens, tlens, quals)
 
 
-def _scheme_args(scheme: GotohScheme, atype: AlignmentType):
-    eo, ee, fo, fe = gap_penalties(scheme)
-    return [atype.value, scheme.match, scheme.mismatch_min,
-            scheme.mismatch_max, scheme.n_penalty, eo, ee, fo, fe]
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _result(out):
-    return {"score": out[0], "p_end": out[1], "t_end": out[2]}
+def route(lp: int, band_w: int, with_dirs: bool, packed: bool = False) -> str:
+    """The kernel a call of this shape launches on a CUDA device: K4 for
+    patterns longer than LONG_THRESHOLD (the JAX package's dispatch) and
+    for bands wider than K1-K3's register capacity (MAX_BAND cells);
+    otherwise K2 with flags, K3 over packed windows, K1."""
+    if lp > LONG_THRESHOLD or 2 * band_w + 1 > MAX_BAND:
+        return "K4"
+    return "K2" if with_dirs else ("K3" if packed else "K1")
 
 
 def banded_score(patterns, plens, texts, tlens, quals=None, *,
@@ -139,23 +123,32 @@ def banded_score(patterns, plens, texts, tlens, quals=None, *,
 
     patterns (NB, Lp) symbols; texts (NB, Lt); plens, tlens (NB,);
     quals (NB, Lp) or None (= 40).  Returns dict of (NB,) int32
-    ``score``, ``p_end``, ``t_end``."""
+    ``score``, ``p_end``, ``t_end``.  Patterns beyond LONG_THRESHOLD
+    rows go to K4 (``long_dp.banded_score_long``), and so do wide bands
+    on CUDA."""
+    kernel = route(patterns.shape[1], band_w, with_dirs=False)
+    if patterns.shape[1] > LONG_THRESHOLD:
+        return long_dp.banded_score_long(patterns, plens, texts, tlens, quals,
+                                         scheme=scheme, atype=atype,
+                                         band_w=band_w)
     if _on_cpu(patterns, plens, texts, tlens, quals):
         return banded_score_batch(patterns, plens, texts, tlens, quals,
                                   scheme=scheme, atype=atype, band_w=band_w)
+    if kernel == "K4":
+        return long_dp.launch(patterns, plens, tlens, quals, texts=texts,
+                              scheme=scheme, atype=atype, band_w=band_w)
     pats, qual, pl, tl, out = _launch_inputs(patterns, plens, tlens, quals,
                                              band_w)
-    tx = texts.to(torch.int8).contiguous()
-    if tx.shape[0] != pats.shape[0]:
-        raise ValueError("texts and patterns differ in batch size")
+    tx = _launch.stage_texts(texts, pats.shape[0])
     lib = _build.library()
     rc = lib.k1_banded_score(
         pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
         tl.data_ptr(), pats.shape[0], pats.shape[1], tx.shape[1], band_w,
-        *_scheme_args(scheme, atype), out.data_ptr(), _stream(pats.device))
+        *_launch.scheme_args(scheme, atype), out.data_ptr(),
+        _launch.stream(pats.device))
     _build.check(lib, rc, "k1_banded_score")
     banded_score.launches += 1
-    return _result(out)
+    return _launch.result(out)
 
 
 def banded_score_packed(patterns, plens, packed, win_start, tlens,
@@ -163,26 +156,29 @@ def banded_score_packed(patterns, plens, packed, win_start, tlens,
                         atype: AlignmentType, band_w: int):
     """K3: banded Gotoh score + sink over windows ``[win_start,
     win_start + tlen)`` of the 2-bit packed genome (pack_genome_words).
-    Bit-identical to K1 over the unpacked windows."""
+    Bit-identical to K1 over the unpacked windows.  Long patterns and
+    wide bands go to K4's packed variant on CUDA."""
+    kernel = route(patterns.shape[1], band_w, with_dirs=False, packed=True)
     if _on_cpu(patterns, plens, packed, win_start, tlens, quals):
         return banded_score_packed_plain(
             patterns, plens, packed, win_start, tlens, quals,
             scheme=scheme, atype=atype, band_w=band_w)
+    if kernel == "K4":
+        return long_dp.launch(patterns, plens, tlens, quals, packed=packed,
+                              win_start=win_start, scheme=scheme,
+                              atype=atype, band_w=band_w)
     pats, qual, pl, tl, out = _launch_inputs(patterns, plens, tlens, quals,
                                              band_w)
-    gw = packed.to(torch.int32).contiguous()
-    ws = win_start.to(torch.int64).contiguous()
-    if ws.shape != (pats.shape[0],):
-        raise ValueError("win_start must be (NB,)")
+    gw, ws = _launch.stage_packed(packed, win_start, pats.shape[0])
     lib = _build.library()
     rc = lib.k3_banded_score_packed(
         pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), gw.data_ptr(),
         gw.numel(), ws.data_ptr(), tl.data_ptr(), pats.shape[0],
-        pats.shape[1], band_w, *_scheme_args(scheme, atype), out.data_ptr(),
-        _stream(pats.device))
+        pats.shape[1], band_w, *_launch.scheme_args(scheme, atype),
+        out.data_ptr(), _launch.stream(pats.device))
     _build.check(lib, rc, "k3_banded_score_packed")
     banded_score_packed.launches += 1
-    return _result(out)
+    return _launch.result(out)
 
 
 def banded_directions(patterns, plens, texts, tlens, quals=None, *,
@@ -190,16 +186,25 @@ def banded_directions(patterns, plens, texts, tlens, quals=None, *,
                       band_w: int):
     """K2: K1 plus one traceback flag per band cell.
 
-    Returns (result dict, dirs (NB, Lp, 2 * band_w + 1) uint8)."""
+    Returns (result dict, dirs (NB, Lp, 2 * band_w + 1) uint8).  Patterns
+    beyond LONG_THRESHOLD rows go to K4 (``long_dp.banded_directions_long``),
+    and so do wide bands on CUDA."""
+    kernel = route(patterns.shape[1], band_w, with_dirs=True)
+    if patterns.shape[1] > LONG_THRESHOLD:
+        return long_dp.banded_directions_long(
+            patterns, plens, texts, tlens, quals, scheme=scheme, atype=atype,
+            band_w=band_w)
     if _on_cpu(patterns, plens, texts, tlens, quals):
         return banded_directions_batch(patterns, plens, texts, tlens, quals,
                                        scheme=scheme, atype=atype,
                                        band_w=band_w)
+    if kernel == "K4":
+        return long_dp.launch(patterns, plens, tlens, quals, texts=texts,
+                              with_dirs=True, scheme=scheme, atype=atype,
+                              band_w=band_w)
     pats, qual, pl, tl, out = _launch_inputs(patterns, plens, tlens, quals,
                                              band_w)
-    tx = texts.to(torch.int8).contiguous()
-    if tx.shape[0] != pats.shape[0]:
-        raise ValueError("texts and patterns differ in batch size")
+    tx = _launch.stage_texts(texts, pats.shape[0])
     nb, lp = pats.shape
     dirs = torch.empty((nb, lp, 2 * band_w + 1), dtype=torch.uint8,
                        device=pats.device)
@@ -207,11 +212,11 @@ def banded_directions(patterns, plens, texts, tlens, quals=None, *,
     rc = lib.k2_banded_directions(
         pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
         tl.data_ptr(), nb, lp, tx.shape[1], band_w,
-        *_scheme_args(scheme, atype), out.data_ptr(), dirs.data_ptr(),
-        _stream(pats.device))
+        *_launch.scheme_args(scheme, atype), out.data_ptr(), dirs.data_ptr(),
+        _launch.stream(pats.device))
     _build.check(lib, rc, "k2_banded_directions")
     banded_directions.launches += 1
-    return _result(out), dirs
+    return _launch.result(out), dirs
 
 
 #: the wrappers whose launches are counted, by kernel name
@@ -219,6 +224,7 @@ KERNELS = {
     "K1": banded_score,
     "K2": banded_directions,
     "K3": banded_score_packed,
+    "K4": long_dp.launch,
 }
 
 

@@ -32,9 +32,12 @@ def _parse(argv):
                    help="seed interval: a constant or a Bowtie2 function "
                    "FN,A,B of read length (C, L, S, G; default S,1,1.15)")
     p.add_argument("--max-read-len", type=int, default=320,
-                   help="pad/bucket reads to this many bp")
+                   help="pad/bucket reads to this many bp; raise for "
+                   "long reads (the DP engine row-blocks patterns "
+                   "beyond 512 bp automatically)")
     p.add_argument("--band", type=int, default=None,
-                   help="extension band half-width (default 15)")
+                   help="extension band half-width (default 15; long "
+                   "reads want more indel drift room, e.g. 63)")
     p.add_argument("--ma", type=int, default=None,
                    help="match bonus (default 0 end-to-end)")
     p.add_argument("--mp", default="6,2", metavar="MX,MN",

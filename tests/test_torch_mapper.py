@@ -4,8 +4,9 @@ runjump_walk on the same flags, and the copied parameter types."""
 
 import dataclasses
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +16,8 @@ from nvbio_tpu.fmindex.build import build_fm_index, build_kmer_lut
 from nvbio_tpu.models import mapper as jax_mapper
 from nvbio_tpu.models import params as jax_params
 from nvbio_tpu.utils.simulate import random_genome, simulate_reads
-from nvbio_tpu_torch.alignment import types
+from nvbio_tpu_torch.alignment import types, walk
+from nvbio_tpu_torch.alignment.batched import banded_directions_batch
 from nvbio_tpu_torch.alignment.walk import runjump_walk
 from nvbio_tpu_torch.io.index_file import index_from_numpy
 from nvbio_tpu_torch.models import mapper, params
@@ -139,6 +141,57 @@ def test_runjump_walk_matches_jax_on_random_flags():
                            max_runs=max_runs)
         for g, w in zip(got, want):
             _eq(g, w, "walk")
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """One intra-op torch thread: the plain DP runs ~30 small ops per
+    pattern row, which slow down many times over when the test workers'
+    thread pools fight for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_runjump_walk_long_patterns_match_jax(one_torch_thread,
+                                              monkeypatch):
+    """Long-pattern flags (Lp 2016, STRIDE 127): the walk, its run
+    descriptors built in int32 one block of lanes at a time, equals the
+    JAX walk — from the DP's sinks over real flags and from random cells
+    over random flags."""
+    rng = np.random.default_rng(12)
+    R, rows, w = 4, 2016, 63
+    stride = 2 * w + 1
+    texts = rng.integers(0, 4, (R, rows + 2 * w)).astype(np.int8)
+    pats = np.stack([np.roll(texts[r, w:w + rows], int(s))
+                     for r, s in enumerate(rng.integers(-20, 21, R))])
+    mut = rng.random(pats.shape) < 0.02
+    pats[mut] = rng.integers(0, 4, int(mut.sum()))
+    lens = np.full(R, rows, np.int32)
+    res, dirs = banded_directions_batch(
+        torch.from_numpy(pats), torch.from_numpy(lens),
+        torch.from_numpy(texts), torch.from_numpy(lens + 2 * w),
+        scheme=types.GotohScheme(), atype=types.AlignmentType.SEMI_GLOBAL,
+        band_w=w)
+    i0 = res["p_end"].long()
+    cases = [(dirs.reshape(R, -1), i0, res["t_end"].long() - i0 + w),
+             (torch.from_numpy(rng.integers(0, 16, (R, rows * stride))
+                               .astype(np.uint8)),
+              torch.from_numpy(rng.integers(0, rows + 1, R)),
+              torch.from_numpy(rng.integers(0, stride, R)))]
+    jwalk = jax.jit(jax_runjump_walk, static_argnames=("STRIDE", "max_runs"))
+    monkeypatch.setattr(walk, "_BLOCK_CELLS", rows * stride)  # 1 lane/block
+    runs = []
+    for flags, i, k in cases:
+        want = jwalk(jnp.asarray(flags.numpy()), stride,
+                     jnp.asarray(i.numpy(), jnp.int32),
+                     jnp.asarray(k.numpy(), jnp.int32), max_runs=300)
+        got = runjump_walk(flags, stride, i, k, max_runs=300)
+        for g, wv in zip(got, want):
+            _eq(g, wv, "walk")
+        runs.append(int((got[3] > 0).sum()))
+    assert runs[0] > 2 * R  # the DP's traces cross the shifted ends
 
 
 def test_copied_types_match_reference():

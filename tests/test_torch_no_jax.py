@@ -107,3 +107,35 @@ def test_map_reads_rejects_unported_flags(tmp_path, flags, capsys):
     with pytest.raises(SystemExit):
         mapr(_tiny_index(tmp_path) + ["--device", "cpu"] + flags)
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.fixture()
+def one_torch_thread():
+    """One intra-op torch thread: the plain DP runs ~30 small ops per
+    pattern row, which slow down many times over when the test workers'
+    thread pools fight for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_map_reads_takes_long_read_settings(one_torch_thread, tmp_path,
+                                           capsys):
+    """--max-read-len 2048 --band 63, the JAX CLI's advice for long
+    reads, is accepted and maps; the help says what the JAX CLI says."""
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    args = _tiny_index(tmp_path)
+    assert mapr(args + ["--device", "cpu", "--max-read-len", "2048",
+                        "--band", "63", "--batch", "32"]) == 0
+    recs = [ln.split("\t") for ln in open(tmp_path / "o.sam")
+            if not ln.startswith("@")]
+    assert len(recs) == 1 and recs[0][3] == "101"
+    with pytest.raises(SystemExit):
+        mapr(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert ("raise for long reads (the DP engine row-blocks patterns "
+            "beyond 512 bp automatically)") in text
+    assert ("extension band half-width (default 15; long reads want more "
+            "indel drift room, e.g. 63)") in text
