@@ -32,15 +32,39 @@ failure:
    --device cuda with the counts reset just before; K4 launched,
    accuracy bars (40 bp window), throughput, peak memory, per-stage
    breakdown, and the first 128 reads mapped under --device cuda and
-   --device cpu to identical SAM lines.
+   --device cpu to identical SAM lines;
+9. K5 against its plain versions at sw_benchmark's wide shape (128 x
+   4000 bp, band_w 2000): score-only for all three alignment types (N
+   symbols, ragged and zero lengths, a GLOBAL goal outside the band),
+   with flags on 8 lanes (every flag byte), the device walk over the
+   kernel's flags against the host walk; times and GCUPS;
+10. K6 against its plain version at 2^19 x 100 bp and 8192 x 1000 bp
+   (32 words), GLOBAL and SEMI_GLOBAL; times and GCUPS;
+11. sw_benchmark --device cuda --long at its defaults (the JAX tool's
+   TPU sizes) with the counts reset just before: K1, K4, K5 and K6
+   launched; its JSON rows recorded;
+12. K4 at the shapes sw_benchmark gives it, on the tool's own batches:
+   score-only at 1024 x 10 000 bp, band_w 63, and with flags and walks
+   on wide_cigar's pass-2 call (128 x 4000 bp, the certificate's band),
+   bit-identical to the plain versions; wide_cigar's 128 CIGARs
+   re-scored, its first 4 lanes equal to a CPU run of the same lanes;
+13. pass 3 of the wide-band CIGAR: wide_band_cigar_batch on 8 lanes of
+   4000 bp at band_w 2000, each with one planted deletion past the 767
+   band ladder (tests/test_wide_cigar.py's forced-gap scheme), with the
+   counts reset just before: K5 with flags launched, every lane has a
+   CIGAR that re-scores to its score and holds its planted D run.
 
 The last line is {"ok": true, "device": {...}}; the line before it
-lists the ported kernels (K1-K4) as JSON, with the launches of the
-path that runs each (K3, K2: the short-read run; K4: the long-read run;
-K1 runs on neither: the paired-end rescue, not ported yet, uses it).
-Bulk files go to .chip_smoke_work/ (removed at the end), a copy of the
-numbers to result.json in OUT, with nvcc's ptxas report beside it.
-Imports no JAX: a finder refuses it.
+lists the ported kernels (K1-K6, K5 as its score and its flag entry
+points) as JSON, with the launches of the path that runs each (K2, K3:
+the short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark;
+K5 with flags: the pass-3 run), the time and plain time at the phase
+shapes, and the least time the card could take for the same call
+(bound_ms: int32 operations over 132 SMs x 64 lanes x the max SM clock,
+or bytes over 3.35 TB/s, whichever is larger).  Bulk files go to
+.chip_smoke_work/ (removed at the end), a copy of the numbers to
+result.json in OUT, with nvcc's ptxas report beside it.  Imports no JAX
+and nothing of nvbio_tpu: a finder refuses both.
 """
 
 from __future__ import annotations
@@ -67,19 +91,56 @@ BENCH_NB, BENCH_LP = 2_097_152, 100  # bench.py:43-56
 # at --band 63; their extension batch is 2 * 1024 * 16 * 0.25 lanes
 LONG_NB, LONG_DIRS_NB, LONG_LP, LONG_W = 8_192, 1_024, 2_016, 63
 N_LONG, LONG_LEN, LONG_CPU = 20_000, 2_000, 128
+# sw_benchmark's wide batch (nvbio_tpu/tools/sw_benchmark.py:153-162):
+# 128 lanes of 4000 bp at band_w 2000; K5's flags are checked on 8
+WIDE_NB, WIDE_DIRS_NB, WIDE_LP, WIDE_W = 128, 8, 4_000, 2_000
+# Myers: sw_benchmark's 2^19 x 100 bp, and a 32-word pattern length
+MYERS_SHAPES = ((1 << 19, 100, 130), (8_192, 1_000, 1_060))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_LANES_PER_SM, N_SMS = 64, 132
+# int32 operations per cell, counted from the kernels' cell updates:
+# Gotoh (K1, K3, K4, K5): substitution 4 (two compares, two selects),
+# F 3, Hdiag 1, Hhat 1, E 3, H 1, masking and sink 2; flags add the H
+# source (2 compares, 2 selects), the E/F open bits (2 compares) and
+# packing (2 shifts/ors)
+GOTOH_OPS, GOTOH_FLAG_OPS = 15, 23
+# Myers (K6), per word of ceil(plen / 32) and text column < tlen: Peq
+# select 1, xv 1, add with carry 3, xh 2, ph 3, mh 1, shifts with carry
+# 6, VP 3, VN 1; per column: the end bits 2, the distance 2, the best
+# distance and its column 3.  The kernel's masks to plen bits are not
+# counted: bits above the end bit never reach it (adds carry upward,
+# shifts go left), so the function does not need them.
+MYERS_WORD_OPS, MYERS_COL_OPS = 21, 7
 
 
 class _BlockJax:
-    """Refuse any import of jax: the GPU machine has none, and the port
-    must not need it."""
+    """Refuse any import of jax or of the JAX package: the GPU machine
+    has no JAX, and the port keeps its own copies of what it needs."""
 
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if (name in ("jax", "nvbio_tpu")
+                or name.startswith(("jax.", "jaxlib", "nvbio_tpu."))):
             raise ImportError(f"chip_smoke: blocked import of {name}")
         return None
 
 
 sys.meta_path.insert(0, _BlockJax())
+#: int32 operations per second of the card, set by phase_card
+INT32_PEAK = None
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``ops`` int32 operations and ``nbytes`` bytes moved."""
+    t_ops, t_bytes = ops / INT32_PEAK, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def dp_bytes(*tensors, out_bytes=0):
+    """Bytes a DP call must move: every input read once, outputs once."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None) + out_bytes
 
 
 def log(*args):
@@ -98,9 +159,18 @@ def phase_card(torch):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    global INT32_PEAK
+    INT32_PEAK = N_SMS * INT32_LANES_PER_SM * mhz * 1e6
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    return smi
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+        f"max SM clock {mhz:.0f} MHz: int32 peak {N_SMS} SMs x "
+        f"{INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz = "
+        f"{INT32_PEAK / 1e12:.2f} Tops/s")
+    return smi, mhz
 
 
 def phase_build():
@@ -294,11 +364,18 @@ def phase_kernels(torch, np):
             continue
         cells = int(plens.clamp(max=LP).sum()) * (2 * BAND_W + 1)
         cells2 = NB * LP * (2 * BAND_W + 1)
-        for name, kern, plain, c in (("K1", k1, p1, cells),
-                                     ("K3", k3, p3, cells),
-                                     ("K2", k2, p2, cells2)):
+        io = (pats, quals, plens, tlens)
+        for name, kern, plain, c, ops, nbytes in (
+                ("K1", k1, p1, cells, GOTOH_OPS,
+                 dp_bytes(*io, texts, out_bytes=12 * NB)),
+                ("K3", k3, p3, cells, GOTOH_OPS,
+                 dp_bytes(*io, gwords, ws, out_bytes=12 * NB)),
+                ("K2", k2, p2, cells2, GOTOH_FLAG_OPS,
+                 dp_bytes(*io, texts, out_bytes=12 * NB + cells2))):
             ms, pms = cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2)
-            out[name] = {"ms": ms, "plain_ms": pms,
+            bms, by = bound(c * ops, nbytes)
+            out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                         "bound_by": by, "cells": c,
                          "gcups": c / ms / 1e6, "plain_gcups": c / pms / 1e6}
             log(f"[kernels] {name} SEMI_GLOBAL NB={NB} Lp={LP} "
                 f"band_w={BAND_W}: kernel {ms:.3f} ms ({c / ms / 1e6:.1f} "
@@ -372,7 +449,13 @@ def phase_k4(torch, np):
         cells_d = nd * LONG_LP * band
         ms, pms = cuda_ms(torch, k4, 10), cuda_ms(torch, p4, 2)
         dms, dpms = cuda_ms(torch, k4d, 10), cuda_ms(torch, p4d, 2)
-        out = {"ms": ms, "plain_ms": pms, "gcups": cells / ms / 1e6,
+        bms, by = bound(cells * GOTOH_OPS,
+                        dp_bytes(*args, out_bytes=12 * LONG_NB))
+        dbms, dby = bound(cells_d * GOTOH_FLAG_OPS,
+                          dp_bytes(*dargs, out_bytes=12 * nd + cells_d))
+        out = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+               "dirs_bound_ms": dbms, "dirs_bound_by": dby,
+               "gcups": cells / ms / 1e6,
                "plain_gcups": cells / pms / 1e6, "dirs_ms": dms,
                "dirs_plain_ms": dpms, "dirs_gcups": cells_d / dms / 1e6,
                "dirs_plain_gcups": cells_d / dpms / 1e6}
@@ -416,7 +499,8 @@ def phase_wide_band(torch, np):
         r2, d2 = banded_dp.banded_directions(*args, **kw)
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
-        if counts != {"K1": 0, "K2": 0, "K3": 0, "K4": 3}:
+        if counts != {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 0,
+                      "K5_dirs": 0, "K6": 0}:
             fail(f"band_w {LONG_W} calls did not all route to K4: {counts}")
         w1 = banded_score_batch(*args, **kw)
         w3 = banded_dp.banded_score_packed_plain(pats, plens, gwords, ws,
@@ -487,15 +571,433 @@ def phase_bench_k1(torch, np):
             "plain_gcups": cells / pms / 1e6}
 
 
+def wide_inputs(np, nb, lp, band_w, rng):
+    """sw_benchmark's wide batch (pattern planted at a random offset in
+    a 2 * band_w wider text), with substitutions, N and one short indel
+    per lane; lane 0 has a zero-length pattern, lane 1 a zero-length
+    text, lane 2 ragged lengths and lane 3 a GLOBAL goal outside the
+    band (its text ends 2.5 band widths short of the pattern)."""
+    lt = lp + 2 * band_w
+    texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
+    pats = rng.integers(0, 4, (nb, lp)).astype(np.int8)
+    for b in range(nb):
+        off = int(rng.integers(0, band_w))
+        cut = int(rng.integers(1, lp))
+        seg = np.concatenate([pats[b, :cut], rng.integers(0, 4, 30),
+                              pats[b, cut:]]).astype(np.int8)
+        mut = rng.random(len(seg)) < 0.02
+        seg[mut] = rng.integers(0, 5, int(mut.sum()))
+        texts[b, off:off + len(seg)] = seg[:lt - off]
+    pats[rng.random(pats.shape) < 0.005] = 4
+    plens = np.full(nb, lp, np.int32)
+    tlens = np.full(nb, lt, np.int32)
+    plens[0], tlens[1] = 0, 0
+    plens[2], tlens[2] = lp - 333, lt - 777
+    tlens[3] = lp - band_w - 500
+    quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
+    return pats, plens, texts, tlens, quals
+
+
+def k5_cells(torch, plens, tlens, band_w):
+    """In-band cells a K5 call needs (score-only or with flags): rows
+    1..plen, columns 0..tlen."""
+    cells = 0
+    for p, t in zip(plens.tolist(), tlens.tolist()):
+        r = torch.arange(1, max(p, 0) + 1, dtype=torch.int64)
+        lo = (r - band_w).clamp(min=0)
+        hi = (r + band_w).clamp(max=t)
+        cells += int((hi - lo + 1).clamp(min=0).sum())
+    return cells
+
+
+def phase_k5(torch, np):
+    """K5 against its plain versions at sw_benchmark's wide shape."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+    from nvbio_tpu_torch.alignment.wavefront_walk import (
+        walk_wavefront_dirs, walk_wavefront_dirs_device)
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 6)
+    arrays = wide_inputs(np, WIDE_NB, WIDE_LP, WIDE_W, rng)
+    pats, plens, texts, tlens, quals = (torch.from_numpy(a).to(dev)
+                                        for a in arrays)
+    args = (pats, plens, texts, tlens, quals)
+    nd = WIDE_DIRS_NB
+    dargs = tuple(a[:nd] for a in args)
+    keys = ("score", "p_end", "t_end")
+    out, worst = {}, 0
+    for atype in AlignmentType:
+        kw = dict(scheme=GotohScheme(match=2 if atype == AlignmentType.LOCAL
+                                     else 0), atype=atype, band_w=WIDE_W)
+
+        def k5():
+            return wavefront_dp.wavefront_score(*args, **kw)
+
+        def p5():
+            return banded_score_batch(*args, twin=True, **kw)
+
+        r, w = k5(), p5()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [r[k] for k in keys], [w[k] for k in keys])
+        n_ok = int((w["score"] > -(1 << 29)).sum())
+        if err:
+            fail(f"K5 differs from its plain version ({atype.name}): "
+                 f"max_abs_err {err}")
+        if n_ok < WIDE_NB // 2:
+            fail(f"K5 {atype.name}: only {n_ok} of {WIDE_NB} lanes have a "
+                 "path, too few for the comparison to mean much")
+        worst = max(worst, err)
+        log(f"[k5] {atype.name}: score-only over {WIDE_NB} lanes ({n_ok} "
+            f"with a path) bit-identical to the plain version (Lp "
+            f"{WIDE_LP}, Lt {WIDE_LP + 2 * WIDE_W}, band_w {WIDE_W})")
+        if atype != AlignmentType.SEMI_GLOBAL:  # sw_benchmark's type
+            continue
+        cells = k5_cells(torch, plens.cpu(), tlens.cpu(), WIDE_W)
+        ms, pms = cuda_ms(torch, k5, 5), cuda_ms(torch, p5, 1)
+        bms, by = bound(cells * GOTOH_OPS,
+                        dp_bytes(*args, out_bytes=12 * WIDE_NB))
+        row_cells = WIDE_NB * WIDE_LP * (2 * WIDE_W + 1)
+        out["K5"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by, "cells": cells,
+                     "gcups": row_cells / ms / 1e6,
+                     "plain_gcups": row_cells / pms / 1e6}
+        log(f"[k5] SEMI_GLOBAL score-only NB={WIDE_NB}: kernel {ms:.3f} ms "
+            f"({row_cells / ms / 1e6:.1f} GCUPS as sw_benchmark counts, "
+            f"{cells / ms / 1e6:.1f} over the {cells} cells visited), plain "
+            f"{pms:.1f} ms; bound {bms:.3f} ms ({by})")
+
+        def k5d():
+            return wavefront_dp.wavefront_dirs(*dargs, **kw)
+
+        def p5d():
+            return wavefront_dp.wavefront_dirs_plain(*dargs, **kw)
+
+        (rd, dd), (wd, ed) = k5d(), p5d()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, [rd[k] for k in keys] + [dd],
+                              [wd[k] for k in keys] + [ed]),
+                  max_abs_err(torch, [rd[k] for k in keys],
+                              [r[k][:nd] for k in keys]))
+        walk = walk_wavefront_dirs_device(dd, rd["p_end"], rd["t_end"],
+                                          band_w=WIDE_W)
+        walk_p = walk_wavefront_dirs_device(ed, wd["p_end"], wd["t_end"],
+                                            band_w=WIDE_W)
+        err = max(err, max_abs_err(torch, walk, walk_p))
+        ops, n, ps, ts = (x.cpu().numpy() for x in walk)
+        dd_h = dd.cpu().numpy()
+        for b in range(nd):  # the host walk gives the same runs
+            ro, rl, hps, hts = walk_wavefront_dirs(
+                dd_h[b], WIDE_W, int(rd["p_end"][b]), int(rd["t_end"][b]))
+            seq = np.repeat(ro, rl)
+            if (hps, hts) != (ps[b], ts[b]) or not np.array_equal(
+                    seq, ops[b, :n[b]]):
+                fail(f"K5 flags: device walk != host walk on lane {b}")
+        if err:
+            fail(f"K5 with flags differs from its plain version: "
+                 f"max_abs_err {err}")
+        worst = max(worst, err)
+        # the cells the call needs (lane 0 has plen 0, lane 1 tlen 0,
+        # lanes 2 and 3 are short), 4 bits of flags each
+        cells_d = k5_cells(torch, plens[:nd].cpu(), tlens[:nd].cpu(), WIDE_W)
+        row_cells_d = nd * WIDE_LP * (2 * WIDE_W + 1)
+        dms, dpms = cuda_ms(torch, k5d, 3), cuda_ms(torch, p5d, 1)
+        dbms, dby = bound(cells_d * GOTOH_FLAG_OPS,
+                          dp_bytes(*dargs, out_bytes=12 * nd + cells_d // 2))
+        out["K5_dirs"] = {"ms": dms, "plain_ms": dpms, "bound_ms": dbms,
+                          "bound_by": dby, "cells": cells_d,
+                          "flag_bytes": dd.numel(),
+                          "gcups": cells_d / dms / 1e6,
+                          "plain_gcups": cells_d / dpms / 1e6,
+                          "tool_gcups": row_cells_d / dms / 1e6}
+        log(f"[k5] with flags NB={nd}: every flag byte ({dd.numel()}) and "
+            f"the device walk equal the plain version's, device walk = "
+            f"host walk; kernel {dms:.3f} ms ({cells_d / dms / 1e6:.1f} "
+            f"GCUPS over the {cells_d} cells needed, "
+            f"{row_cells_d / dms / 1e6:.1f} as sw_benchmark counts), plain "
+            f"{dpms:.1f} ms; bound {dbms:.3f} ms ({dby})")
+        del dd, ed, rd, wd
+    out["K5"]["max_abs_err"] = out["K5_dirs"]["max_abs_err"] = worst
+    return out
+
+
+def phase_k6(torch, np):
+    """K6 against its plain version at sw_benchmark's shape and at a
+    32-word pattern length, GLOBAL and SEMI_GLOBAL."""
+    from nvbio_tpu_torch.alignment.myers import myers_edit_distance_batch
+    from nvbio_tpu_torch.alignment.types import AlignmentType
+    from nvbio_tpu_torch.ops import myers
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 7)
+    out, worst = {}, 0
+    for nb, lp, lt in MYERS_SHAPES:
+        pats = rng.integers(0, 4, (nb, lp)).astype(np.int8)
+        texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
+        off = (lt - lp) // 2
+        texts[:, off:off + lp] = pats
+        mut = rng.random(texts.shape) < 0.03
+        texts[mut] = rng.integers(0, 5, int(mut.sum()))
+        plens = np.full(nb, lp, np.int32)
+        tlens = np.full(nb, lt, np.int32)
+        plens[:3], tlens[3:5] = (0, 1, lp // 3), (0, lt // 2)
+        args = [torch.from_numpy(a).to(dev)
+                for a in (pats, plens, texts, tlens)]
+        words = (lp + 31) // 32
+        for atype in (AlignmentType.GLOBAL, AlignmentType.SEMI_GLOBAL):
+            def k6():
+                return myers.myers(*args, atype=atype)
+
+            def p6():
+                return myers_edit_distance_batch(*args, atype=atype)
+
+            err = max_abs_err(torch, list(k6()), list(p6()))
+            if err:
+                fail(f"K6 differs from its plain version ({atype.name}, "
+                     f"Lp {lp}): max_abs_err {err}")
+            worst = max(worst, err)
+            if atype != AlignmentType.SEMI_GLOBAL:
+                continue
+            ms, pms = cuda_ms(torch, k6, 10), cuda_ms(torch, p6, 1)
+            cells = nb * lp * lt  # full-matrix cells (sw_benchmark.py:93)
+            # the words and columns the function needs, lane by lane
+            pl = plens.astype(np.int64)
+            cols = np.where(pl > 0, tlens.clip(0, lt), 0).astype(np.int64)
+            work = int((cols * ((pl + 31) // 32)).sum())
+            ops = MYERS_WORD_OPS * work + MYERS_COL_OPS * int(cols.sum())
+            bms, by = bound(ops, dp_bytes(*args, out_bytes=8 * nb))
+            out[f"{nb}x{lp}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                 "bound_by": by, "word_columns": work,
+                                 "gcups": cells / ms / 1e6,
+                                 "plain_gcups": cells / pms / 1e6}
+            log(f"[k6] {nb} x {lp} bp ({words} words): GLOBAL and "
+                "SEMI_GLOBAL bit-identical to the plain version; SEMI_GLOBAL"
+                f" kernel {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+                f"full-matrix cells), plain {pms:.1f} ms; bound {bms:.3f} ms"
+                f" ({by})")
+    tool_shape = out[f"{MYERS_SHAPES[0][0]}x{MYERS_SHAPES[0][1]}"]
+    return dict(tool_shape, max_abs_err=worst, shapes=out)
+
+
+def phase_sw_benchmark(torch):
+    """sw_benchmark --device cuda --long at its defaults."""
+    import contextlib
+    import io
+
+    from nvbio_tpu_torch.ops import banded_dp
+    from nvbio_tpu_torch.tools.sw_benchmark import main as swb
+
+    buf = io.StringIO()
+    banded_dp.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = swb(["--device", DEV, "--long"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    rows = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or any(launches[k] < 1 for k in ("K1", "K4", "K5", "K6")):
+        fail(f"sw_benchmark --long did not launch K1, K4, K5 and K6: "
+             f"rc {rc}, launches {launches}")
+    if {r["engine"] for r in rows} != {"cuda"}:
+        fail(f"sw_benchmark rows not all on the kernels: {rows}")
+    for r in rows:
+        log(f"[sw_benchmark] {json.dumps(r)}")
+    log(f"[sw_benchmark] --device cuda --long: {secs:.1f}s; launches "
+        f"{launches}")
+    return {"rows": rows, "launches": launches, "seconds": secs}
+
+
+def rescore(scheme, pats, texts, quals, out, b):
+    """Lane b's CIGAR (out's runs, end to start) re-scored from its start
+    cell on host arrays: (score, p_end, t_end) it attains, and its runs
+    as (op, length) pairs."""
+    from nvbio_tpu_torch.alignment.types import gap_penalties
+
+    eo, ee, fo, fe = gap_penalties(scheme)
+    runs = [(int(o), int(n)) for o, n in zip(out["run_ops"][b],
+                                             out["run_lens"][b]) if n]
+    i, j, sc = int(out["p_start"][b]), int(out["t_start"][b]), 0
+    for op, n in runs[::-1]:  # start to end
+        if op == 1:
+            for _ in range(n):
+                q = 40 if quals is None else int(quals[b, i])
+                sc += scheme.substitution(int(pats[b, i]), int(texts[b, j]),
+                                          q)
+                i, j = i + 1, j + 1
+        elif op == 2:
+            sc, j = sc - eo - n * ee, j + n
+        else:
+            sc, i = sc - fo - n * fe, i + n
+    return (sc, i, j), runs
+
+
+def phase_tool_shapes(torch, np):
+    """K4 at the shapes sw_benchmark --long gives it, against its plain
+    versions on the tool's own batches: score-only on the gotoh_long
+    batch (1024 x 10 000 bp, band_w 63) and, with flags and the run-jump
+    walk, on wide_cigar's pass-2 call (128 x 4000 bp at the band the
+    certificate picks); wide_cigar's 128 CIGARs re-scored, and its first
+    lanes equal to the same lanes run on the CPU."""
+    from nvbio_tpu_torch.alignment.batched import (banded_directions_batch,
+                                                   banded_score_batch)
+    from nvbio_tpu_torch.alignment.types import (NEG_INF, AlignmentType,
+                                                 GotohScheme)
+    from nvbio_tpu_torch.alignment.wide import (_quantize_band,
+                                                derive_tb_band, pass2_window,
+                                                wide_band_cigar_batch)
+    from nvbio_tpu_torch.ops import banded_dp, long_dp
+    from nvbio_tpu_torch.tools.sw_benchmark import make_batches
+
+    dev = torch.device(DEV)
+    batches = make_batches(on_gpu=True)
+    scheme = GotohScheme()
+    kw = dict(scheme=scheme, atype=AlignmentType.SEMI_GLOBAL)
+    keys = ("score", "p_end", "t_end")
+
+    *long_, wl = batches["long"]
+    larr = [torch.from_numpy(a).to(dev) for a in long_]
+    banded_dp.reset_launch_counts()
+    got = banded_dp.banded_score(*larr, band_w=wl, **kw)
+    n_k4 = banded_dp.KERNELS["K4"].launches
+    want = banded_score_batch(*larr, band_w=wl, **kw)
+    err = max_abs_err(torch, [got[k] for k in keys], [want[k] for k in keys])
+    if err or n_k4 != 1:
+        fail(f"K4 at gotoh_long's shape {tuple(long_[0].shape)}, band_w "
+             f"{wl}: max_abs_err {err}, K4 launches {n_k4}")
+    log(f"[tool] K4 score-only on gotoh_long's batch "
+        f"({long_[0].shape[0]} x {long_[0].shape[1]} bp, band_w {wl}) "
+        "bit-identical to the plain version")
+    del larr, got, want
+
+    *wide, ww = batches["wide"]
+    nb, lp = wide[0].shape
+    warr = [torch.from_numpy(a).to(dev) for a in wide]
+    res1 = long_dp.banded_score_long(*warr, band_w=ww, **kw)
+    score, p_end, t_end = (res1[k].cpu().numpy().astype(np.int64)
+                           for k in keys)
+    need, off = derive_tb_band(wide[1], score, p_end, t_end, scheme, ww)
+    b2 = _quantize_band(int(need.max()))
+    if not (score > NEG_INF // 2).all() or b2 is None:
+        fail(f"wide_cigar's batch: pass 1 left lanes without a path or "
+             f"past the band ladder (need up to {int(need.max())})")
+    texts2, tlens2 = pass2_window(warr[2], warr[3], off, lp, b2)
+    p2 = (warr[0], warr[1], texts2, tlens2)
+    banded_dp.reset_launch_counts()
+    rd, dd = banded_dp.banded_directions(*p2, band_w=b2, **kw)
+    n_k4 = banded_dp.KERNELS["K4"].launches
+    wd, ed = banded_directions_batch(*p2, band_w=b2, **kw)
+    err = max(max_abs_err(torch, [rd[k] for k in keys] + [dd],
+                          [wd[k] for k in keys] + [ed]),
+              max_abs_err(torch, walk_outputs(torch, rd, dd, b2),
+                          walk_outputs(torch, wd, ed, b2)))
+    if err or n_k4 != 1:
+        fail(f"K4 with flags at wide_cigar's pass-2 shape ({nb} x {lp} bp, "
+             f"band_w {b2}): max_abs_err {err}, K4 launches {n_k4}")
+    log(f"[tool] K4 with flags on wide_cigar's pass-2 call ({nb} x {lp} "
+        f"bp, band_w {b2}): results, every flag and the run-jump walks "
+        "bit-identical to the plain version")
+    del dd, ed
+
+    out = wide_band_cigar_batch(*warr, band_w=ww, **kw)
+    for b in range(nb):
+        (sc, i, j), _ = rescore(scheme, wide[0], wide[2], None, out, b)
+        if not (out["tb_ok"][b] and (sc, i, j) == (
+                out["score"][b], out["p_end"][b], out["t_end"][b])):
+            fail(f"wide_cigar lane {b}: tb_ok {out['tb_ok'][b]}, CIGAR "
+                 f"re-scores to {(sc, i, j)}, not "
+                 f"{(out['score'][b], out['p_end'][b], out['t_end'][b])}")
+    n_cpu = 4
+    cpu = wide_band_cigar_batch(
+        *[torch.from_numpy(a[:n_cpu]) for a in wide], band_w=ww, **kw)
+    for k, v in cpu.items():
+        a, c = np.asarray(out[k])[:n_cpu], np.asarray(v)
+        if k in ("run_ops", "run_lens"):  # widths follow the batch
+            w = max(a.shape[1], c.shape[1])
+            a = np.pad(a, ((0, 0), (0, w - a.shape[1])))
+            c = np.pad(c, ((0, 0), (0, w - c.shape[1])))
+        if not np.array_equal(a, c):
+            fail(f"wide_cigar: {k} of the first {n_cpu} lanes differs "
+                 "between --device cuda and the same lanes on the CPU")
+    log(f"[tool] wide_cigar's {nb} CIGARs re-score to their scores and "
+        f"ends; the first {n_cpu} lanes equal the CPU run in every output")
+    return {"long_shape": list(long_[0].shape), "long_band_w": wl,
+            "pass2_shape": [nb, lp], "pass2_band_w": b2,
+            "cigars_rescored": nb, "cpu_lanes": n_cpu}
+
+
+def phase_pass3(torch, np):
+    """wide_band_cigar_batch on 8 lanes whose certificate passes the 767
+    ladder (one planted deletion each), through K5 with flags."""
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+    from nvbio_tpu_torch.alignment.wide import (TB_BANDS, derive_tb_band,
+                                                wide_band_cigar_batch)
+    from nvbio_tpu_torch.ops import banded_dp
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 8)
+    # tests/test_wide_cigar.py's forced-gap scheme: cheap text-gap
+    # extension, costly opens, mismatches and pattern gaps
+    scheme = GotohScheme(match=2, mismatch_min=6, mismatch_max=6,
+                         gap_open=50, gap_extend=1, ref_gap_open=30,
+                         ref_gap_extend=10)
+    nb, lp, band_w = WIDE_DIRS_NB, WIDE_LP, WIDE_W
+    lt = lp + 2 * band_w
+    gaps = rng.integers(850, 1600, nb)
+    pats = rng.integers(0, 4, (nb, lp)).astype(np.int8)
+    texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
+    for b in range(nb):
+        cut = int(rng.integers(lp // 4, 3 * lp // 4))
+        t = np.concatenate([pats[b, :cut],
+                            rng.integers(0, 4, gaps[b]).astype(np.int8),
+                            pats[b, cut:]])
+        texts[b, :min(len(t), lt)] = t[:lt]
+    plens = np.full(nb, lp, np.int32)
+    tlens = np.full(nb, lt, np.int32)
+    quals = np.full((nb, lp), 35, np.int32)
+    args = [torch.from_numpy(a).to(dev)
+            for a in (pats, plens, texts, tlens, quals)]
+    banded_dp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = wide_band_cigar_batch(*args, scheme=scheme,
+                                atype=AlignmentType.SEMI_GLOBAL,
+                                band_w=band_w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    need, _ = derive_tb_band(plens, out["score"], out["p_end"],
+                             out["t_end"], scheme, band_w)
+    for b in range(nb):
+        (sc, i, j), runs = rescore(scheme, pats, texts, quals, out, b)
+        if not (out["tb_ok"][b] and need[b] > TB_BANDS[-1]
+                and (sc, i, j) == (out["score"][b], out["p_end"][b],
+                                   out["t_end"][b])
+                and (2, int(gaps[b])) in runs):
+            fail(f"pass 3, lane {b}: tb_ok {out['tb_ok'][b]}, need "
+                 f"{need[b]}, re-scored {(sc, i, j)} vs "
+                 f"{(out['score'][b], out['p_end'][b], out['t_end'][b])}, "
+                 f"planted {gaps[b]}D in runs: {(2, int(gaps[b])) in runs}")
+    if launches["K5_dirs"] < 1:
+        fail(f"pass 3 did not launch K5 with flags: {launches}")
+    log(f"[pass3] {nb} lanes x {lp} bp at band_w {band_w}, planted "
+        f"deletions {gaps.tolist()} (certificates {need.tolist()} > "
+        f"{TB_BANDS[-1]}): every CIGAR re-scores to its score and holds its "
+        f"D run; {secs * 1e3:.1f} ms (host clock); launches {launches}")
+    return {"launches": launches, "ms": secs * 1e3, "gaps": gaps.tolist(),
+            "need": need.tolist()}
+
+
 def sam_records(path):
     with open(path) as f:
         return [ln for ln in f if not ln.startswith("@")]
 
 
 def phase_golden(torch):
-    from nvbio_tpu.io.fasta import write_fasta
-    from nvbio_tpu.io.fastq import write_fastq
-    from nvbio_tpu.utils.simulate import random_genome, simulate_reads
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
     from nvbio_tpu_torch.ops import banded_dp
     from nvbio_tpu_torch.tools.build_index import main as build
     from nvbio_tpu_torch.tools.map_reads import main as mapr
@@ -534,7 +1036,7 @@ def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
                     band_w=15):
     """Host-clock ms per stage (synchronised) for full batches of a
     real-size run; the median of batches 2-4."""
-    from nvbio_tpu.io.sequence import ReadBatchIterator
+    from nvbio_tpu_torch.io.sequence import ReadBatchIterator
     from nvbio_tpu_torch.io.index_file import load_index
     from nvbio_tpu_torch.models import mapper as M
     from nvbio_tpu_torch.models.params import MapperParams
@@ -601,9 +1103,9 @@ def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
 
 
 def phase_real_size(torch, np):
-    from nvbio_tpu.io.fasta import write_fasta
-    from nvbio_tpu.io.fastq import write_fastq
-    from nvbio_tpu.utils.simulate import random_genome, simulate_reads
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
     from nvbio_tpu_torch.ops import banded_dp
     from nvbio_tpu_torch.tools.build_index import main as build
     from nvbio_tpu_torch.tools.map_reads import main as mapr
@@ -685,8 +1187,8 @@ def phase_real_size(torch, np):
 def phase_long_reads(torch, np, g):
     """20 000 reads of 2 kb on the chr20-length index through map_reads
     --max-read-len 2048 --band 63 --batch 1024 --device cuda."""
-    from nvbio_tpu.io.fastq import write_fastq
-    from nvbio_tpu.utils.simulate import simulate_reads
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.utils.simulate import simulate_reads
     from nvbio_tpu_torch.ops import banded_dp
     from nvbio_tpu_torch.tools.map_reads import main as mapr
 
@@ -774,14 +1276,23 @@ def main():
     import numpy as np
     import torch
 
-    smi = phase_card(torch)
+    smi, mhz = phase_card(torch)
     torch.cuda.set_device(0)
     result = {"nvidia_smi": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda, "max_sm_mhz": mhz,
+              "int32_peak": INT32_PEAK}
     try:
         result["build_s"] = phase_build()
         result["kernels"] = phase_kernels(torch, np)
         result["kernels"]["K4"] = phase_k4(torch, np)
+        result["kernels"].update(phase_k5(torch, np))
+        result["kernels"]["K6"] = phase_k6(torch, np)
+        torch.cuda.empty_cache()
+        result["sw_benchmark"] = phase_sw_benchmark(torch)
+        result["tool_shapes"] = phase_tool_shapes(torch, np)
+        torch.cuda.empty_cache()
+        result["pass3"] = phase_pass3(torch, np)
+        torch.cuda.empty_cache()
         result["wide_band"] = phase_wide_band(torch, np)
         result["bench_k1"] = phase_bench_k1(torch, np)
         torch.cuda.empty_cache()
@@ -792,36 +1303,44 @@ def main():
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t_start
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
+    if any(m in ("jax", "nvbio_tpu") or m.startswith(("jax.", "nvbio_tpu."))
+           for m in sys.modules):
+        fail("jax or the JAX package was imported")
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "result.json"), "w") as f:
         json.dump(result, f, indent=1)
 
-    short, long_ = result["real"]["launches"], result["long"]["launches"]
+    paths = {"short-read run": result["real"]["launches"],
+             "long-read run": result["long"]["launches"],
+             "sw_benchmark --long": result["sw_benchmark"]["launches"],
+             "pass 3": result["pass3"]["launches"]}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
-    # (name, source, replaces, launches on the path that runs it)
-    for name, src, replaces, n in (
-            ("K1", "banded_gotoh.cu", "nvbio_tpu/ops/banded_dp.py:761",
-             short["K1"]),
+    # (name, source, replaces, the path whose run launches it)
+    for name, src, replaces, path in (
+            ("K1", "banded_gotoh.cu", "nvbio_tpu/ops/banded_dp.py:835",
+             "sw_benchmark --long"),
             ("K2", "banded_gotoh.cu", "nvbio_tpu/ops/banded_dp.py:620",
-             short["K2"]),
+             "short-read run"),
             ("K3", "banded_gotoh.cu", "nvbio_tpu/ops/banded_dp.py:528",
-             short["K3"]),
+             "short-read run"),
             ("K4", "long_gotoh.cu", "nvbio_tpu/ops/long_dp.py:218",
-             long_["K4"])):
+             "long-read run"),
+            ("K5", "wavefront_gotoh.cu", "nvbio_tpu/ops/wavefront_dp.py:349",
+             "sw_benchmark --long"),
+            ("K5_dirs", "wavefront_gotoh.cu",
+             "nvbio_tpu/ops/wavefront_dp.py:321", "pass 3"),
+            ("K6", "myers.cu", "nvbio_tpu/ops/myers_pallas.py:187",
+             "sw_benchmark --long")):
         k = result["kernels"][name]
-        if name != "K1" and n < 1:
-            fail(f"the path never launched {name}: short {short}, long "
-                 f"{long_}")
+        n = paths[path][name]
+        if n < 1:
+            fail(f"the {path} never launched {name}: {paths[path]}")
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": replaces, "launches": n,
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                        "plain_ms": k["plain_ms"]})
-    log(f"[off the paths] K1: no single-end path launches it (the "
-        f"paired-end rescue does); {result['bench_k1']['gcups']} GCUPS at "
-        "bench.py's shape")
+                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                        "bound_by": k["bound_by"], "library_ms": None})
     log(f"[done] {result['seconds']:.0f}s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -25,6 +25,12 @@ cell.  The outputs follow the Pallas kernels' contract
 - zero-length patterns score NEG_INF (0 in LOCAL) with p_end = 0;
 - t_end = max(p_end + k - w, 0).
 
+With ``twin=True`` the outputs follow the JAX twin itself
+(``nvbio_tpu/alignment/batched.py:139-224``), the contract of the
+wavefront kernel K5 (``nvbio_tpu/ops/wavefront_dp.py:33-40``, raw twin
+values): no SCORE_FLOOR clamp, and GLOBAL reads the goal cell at
+``clip(k, 0, 2w)`` where the Pallas contract says NEG_INF.
+
 The CUDA kernels in ``nvbio_tpu_torch/ops/csrc/banded_gotoh.cu``
 compute exactly this, one thread per alignment.
 """
@@ -91,9 +97,9 @@ def _row0(tlens, band_w, atype, scheme, nb):
 
 
 def _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
-               want_dirs: bool):
+               want_dirs: bool, twin: bool = False):
     """Shared row loop.  Returns (result dict, dirs (B, Lp, BAND) uint8
-    or None)."""
+    or None); ``twin`` selects the JAX twin's output contract."""
     eo, ee, fo, fe = gap_penalties(scheme)
     local = atype == AlignmentType.LOCAL
     pats, plens, tp, tlens, quals = _prepare(patterns, plens, texts, tlens,
@@ -153,8 +159,9 @@ def _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
             in_band = (k_goal >= 0) & (k_goal < BAND)
             h_goal = torch.gather(H_new, 1, k_goal.clamp(0, BAND - 1)
                                   .to(torch.int64)[:, None])[:, 0]
-            best = torch.where(hit, torch.where(in_band, h_goal, NEG_INF),
-                               best)
+            if not twin:
+                h_goal = torch.where(in_band, h_goal, NEG_INF)
+            best = torch.where(hit, h_goal, best)
             best_i = torch.where(hit, row, best_i)
             best_k = torch.where(hit, k_goal, best_k)
             continue
@@ -170,7 +177,8 @@ def _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
         best_i = torch.where(upd, row, best_i)
         best_k = torch.where(upd, row_k, best_k)
 
-    best = torch.where(best < SCORE_FLOOR, NEG_INF, best)
+    if not twin:
+        best = torch.where(best < SCORE_FLOOR, NEG_INF, best)
     zero_len = plens <= 0
     best = torch.where(zero_len, 0 if local else NEG_INF, best)
     best_i = torch.where(zero_len, 0, best_i)
@@ -185,22 +193,23 @@ def _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
 
 def banded_score_batch(patterns, plens, texts, tlens, quals=None, *,
                        scheme: GotohScheme, atype: AlignmentType,
-                       band_w: int):
+                       band_w: int, twin: bool = False):
     """Score-only banded alignment of each (pattern, text) pair.
 
     patterns (B, Lp) symbols (0..3, N >= 4); texts (B, Lt); plens,
     tlens (B,); quals (B, Lp) or None (= 40).  Returns dict of (B,)
-    int32 ``score``, ``p_end``, ``t_end``."""
+    int32 ``score``, ``p_end``, ``t_end``: the Pallas kernels' contract,
+    or with ``twin`` the JAX twin's raw values (module docstring)."""
     return _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype,
-                      band_w, want_dirs=False)[0]
+                      band_w, want_dirs=False, twin=twin)[0]
 
 
 def banded_directions_batch(patterns, plens, texts, tlens, quals=None, *,
                             scheme: GotohScheme, atype: AlignmentType,
-                            band_w: int):
+                            band_w: int, twin: bool = False):
     """``banded_score_batch`` plus per-cell traceback flags (uint8; bits
     0-1: H source diag/E/F/origin, bit 2: E open, bit 3: F open).
 
     Returns (result dict, dirs (B, Lp, BAND) uint8)."""
     return _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype,
-                      band_w, want_dirs=True)
+                      band_w, want_dirs=True, twin=twin)

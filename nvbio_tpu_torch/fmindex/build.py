@@ -2,20 +2,18 @@
 
 Port of ``nvbio_tpu/fmindex/build.py`` (``build_fm_arrays`` ``:106``,
 ``build_kmer_lut`` ``:220``), which imports JAX: the same arrays, from
-the same native passes (``nvbio_tpu.native``: SA-IS, the fused BWT +
+the same native passes (the port's copy ``nvbio_tpu_torch.native``: SA-IS, the fused BWT +
 occ pass, the SSA pass, the k-mer histogram), with the same numpy
 fallbacks when the native library cannot be built.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 
-from nvbio_tpu.basic.packed import pack_2bit
-from nvbio_tpu.native import (kmer_hist_native, sais_lib, sais_native,
-                              ssa_build_native)
+from ..basic.packed import pack_2bit
+from ..native import (fm_bwt_occ_native, kmer_hist_native, sais_native,
+                      ssa_build_native)
 
 BLOCK = 128  # symbols per occ block (the native pass hardcodes it)
 WORDS = BLOCK // 16
@@ -53,38 +51,6 @@ def suffix_array_pd(text: np.ndarray) -> np.ndarray:
         if tmp[n - 1] == n - 1 or 2 * k >= n:
             return sa
         k *= 2
-
-
-def _fm_bwt_occ_native(text: np.ndarray, sa: np.ndarray):
-    """The native fused BWT + packing + occ pass, called through
-    ``sais_lib`` directly: ``nvbio_tpu.native.fm_bwt_occ_native`` checks
-    its block geometry against ``nvbio_tpu.fmindex.build``, which
-    imports JAX.  None when the native library is unavailable."""
-    lib = sais_lib()
-    n = len(text)
-    if lib is None or n == 0:
-        return None
-    c = ctypes
-    t = np.ascontiguousarray(text, dtype=np.uint8)
-    n_blocks = (n + 1 + BLOCK - 1) // BLOCK + 1
-    bwt_words = np.empty((n_blocks, WORDS), dtype=np.uint32)
-    occ_abs = np.empty((n_blocks, 4), dtype=np.int32)
-    occ_sub = np.empty((n_blocks, WORDS, 4), dtype=np.int8)
-    primary = c.c_longlong(-1)
-    if sa.dtype == np.int32:
-        s = np.ascontiguousarray(sa, dtype=np.int32)
-        fn, ptr = lib.fm_bwt_occ_i32, c.POINTER(c.c_int32)
-    else:
-        s = np.ascontiguousarray(sa, dtype=np.int64)
-        fn, ptr = lib.fm_bwt_occ_i64, c.POINTER(c.c_int64)
-    r = fn(t.ctypes.data_as(c.POINTER(c.c_ubyte)), c.c_long(n),
-           s.ctypes.data_as(ptr),
-           bwt_words.ctypes.data_as(c.POINTER(c.c_uint32)),
-           occ_abs.ctypes.data_as(c.POINTER(c.c_int32)),
-           occ_sub.ctypes.data_as(c.POINTER(c.c_byte)), c.byref(primary))
-    if r != 0:
-        return None
-    return bwt_words, occ_abs, occ_sub, int(primary.value)
 
 
 def bwt_from_sa(text: np.ndarray, sa: np.ndarray):
@@ -130,7 +96,7 @@ def build_fm_arrays(text: np.ndarray, sa_sample: int = 32,
         sa = suffix_array(text)
     m = n + 1  # BWT length including the sentinel slot
     n_blocks = (m + BLOCK - 1) // BLOCK + 1  # +1: queries at i = n + 1
-    fused = _fm_bwt_occ_native(text, sa)
+    fused = fm_bwt_occ_native(text, sa)
     if fused is not None:
         bwt_words, occ_abs, occ_sub, primary = fused
     else:

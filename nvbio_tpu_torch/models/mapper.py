@@ -29,14 +29,13 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from nvbio_tpu.basic.alphabet import dna_to_char
-from nvbio_tpu.io.genome import concat_to_contig
-from nvbio_tpu.io.sam import FLAG_REVERSE, FLAG_UNMAPPED, SamRecord
-from nvbio_tpu.native import ops_batch_native
-
 from ..alignment.types import NEG_INF, AlignmentType, gap_penalties
 from ..alignment.walk import runjump_walk
+from ..basic.alphabet import dna_to_char
 from ..fmindex.index import FMIndex, SSA, backward_search, locate
+from ..io.genome import concat_to_contig
+from ..io.sam import FLAG_REVERSE, FLAG_UNMAPPED, SamRecord
+from ..native import ops_batch_native
 from ..ops.banded_dp import (LONG_THRESHOLD, banded_directions,
                              banded_score, banded_score_packed,
                              pack_genome_words, window_slices)

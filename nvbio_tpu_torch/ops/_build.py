@@ -23,7 +23,8 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, "csrc", name)
-           for name in ("banded_gotoh.cu", "long_gotoh.cu")]
+           for name in ("banded_gotoh.cu", "long_gotoh.cu",
+                        "wavefront_gotoh.cu", "myers.cu")]
 HEADERS = [os.path.join(_DIR, "csrc", "gotoh_common.cuh")]
 BUILD_DIR = os.path.join(_DIR, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -55,6 +56,16 @@ _SIGNATURES = {
     # as the score entry points, plus dirs before the stream
     "k2_banded_directions": _DIRS,
     "k4_long_directions": _DIRS,
+    # as k4_long_score, plus the state scratch before out (and dirs after)
+    "k5_wavefront_score": _SCORE[:-2] + [_P, _P, _P],
+    "k5_wavefront_directions": _DIRS[:-3] + [_P, _P, _P, _P],
+    # pats, plens, texts, tlens, nb, lp, lt, global, scratch, out, stream
+    "k6_myers": [_P] * 4 + [_I] * 4 + [_P] * 3,
+}
+#: entry points that return a size, not a cudaError_t
+_SIZES = {
+    "k5_state_words": ([_I], ctypes.c_int),  # band_w
+    "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
 }
 
 
@@ -135,6 +146,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in _SIZES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             lib.banded_gotoh_error_string.argtypes = [ctypes.c_int]
             lib.banded_gotoh_error_string.restype = ctypes.c_char_p
             _lib = lib

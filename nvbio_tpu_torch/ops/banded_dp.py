@@ -31,7 +31,7 @@ import torch
 from ..alignment.batched import (PAD_SYMBOL, banded_directions_batch,
                                  banded_score_batch)
 from ..alignment.types import AlignmentType, GotohScheme
-from . import _build, _launch, long_dp
+from . import _build, _launch, long_dp, myers, wavefront_dp
 
 #: widest band (2 * band_w + 1) K1-K3 are instantiated for; wider bands
 #: go to K4's band-parallel kernel
@@ -163,6 +163,7 @@ def banded_score_packed(patterns, plens, packed, win_start, tlens,
         return banded_score_packed_plain(
             patterns, plens, packed, win_start, tlens, quals,
             scheme=scheme, atype=atype, band_w=band_w)
+    long_dp.check_packed(band_w)
     if kernel == "K4":
         return long_dp.launch(patterns, plens, tlens, quals, packed=packed,
                               win_start=win_start, scheme=scheme,
@@ -219,12 +220,16 @@ def banded_directions(patterns, plens, texts, tlens, quals=None, *,
     return _launch.result(out), dirs
 
 
-#: the wrappers whose launches are counted, by kernel name
+#: the wrappers whose launches are counted, by kernel name (all kernels
+#: of the port, K5 with its score and its flag entry points)
 KERNELS = {
     "K1": banded_score,
     "K2": banded_directions,
     "K3": banded_score_packed,
     "K4": long_dp.launch,
+    "K5": wavefront_dp.wavefront_score,
+    "K5_dirs": wavefront_dp.wavefront_dirs,
+    "K6": myers.myers,
 }
 
 

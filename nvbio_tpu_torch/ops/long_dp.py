@@ -13,11 +13,15 @@ take them for tensors on the CPU, and only then; for CUDA tensors they
 launch the kernel or raise.  ``launch.launches`` counts K4's launches.
 
 Reach follows the JAX package: score-only serves ``band_w <= 971`` (the
-row-blocked kernel's VMEM budget at ``row_block = 256``; wider bands go
-to the wavefront kernel K5 there, which is not ported yet), directions
-serve ``band_w <= 815`` (after the row-block shrink; the JAX package
-raises beyond).  The flags come in the plain version's ``(NB, Lp, 2w+1)``
-layout, which ``alignment/walk.py`` takes with ``STRIDE = 2w+1``.
+row-blocked kernel's VMEM budget at ``row_block = 256``); wider bands go
+to the wavefront kernel K5 (``wavefront_dp.wavefront_score``), which
+returns raw twin values as it does in the JAX package
+(``long_dp.py:336-341``).  Directions serve ``band_w <= 815`` (after the
+row-block shrink; the JAX package raises beyond); packed windows serve
+``band_w <= 971`` on CUDA and raise beyond (``check_packed``); on the CPU
+their plain version serves any band.  The flags come in
+the plain version's ``(NB, Lp, 2w+1)`` layout, which ``alignment/walk.py``
+takes with ``STRIDE = 2w+1``.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 from ..alignment.batched import (SCORE_FLOOR, banded_directions_batch,
                                  banded_score_batch)
 from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
-from . import _build, _launch
+from . import _build, _launch, wavefront_dp
 
 #: widest band (2 * band_w + 1) the kernel is instantiated for
 MAX_BAND = 2048
@@ -47,7 +51,7 @@ def _band_fits(band_w: int, row_block: int, with_dirs: bool) -> bool:
 
 def score_reach(band_w: int) -> bool:
     """Whether the JAX package serves score-only at this band with K4
-    (and not K5)."""
+    (and not K5), and packed windows at all."""
     return _band_fits(band_w, 256, with_dirs=False)
 
 
@@ -74,18 +78,22 @@ def check_long(lp: int, band_w: int, scheme) -> None:
 
 def check_reach(lp: int, band_w: int, scheme, with_dirs: bool) -> None:
     """Raise where the JAX package does not serve a long-pattern call
-    with K4: NotImplementedError beyond the score-only reach (K5's
-    ground), ValueError beyond the directions reach or the floor."""
+    with K4: ValueError beyond the directions reach or the floor (the
+    score-only calls beyond K4's reach go to K5 before this check)."""
     if with_dirs and not dirs_reach(band_w):
         raise ValueError(
             f"band_w={band_w}: the long-read directions kernel serves "
             "band_w <= 815 (nvbio_tpu/ops/long_dp.py raises beyond)")
-    if not with_dirs and not score_reach(band_w):
-        raise NotImplementedError(
-            f"band_w={band_w}: beyond K4's score-only reach (band_w <= 971)"
-            " the JAX package runs the wavefront kernel K5, which is not "
-            "ported yet (ROADMAP.md)")
     check_long(lp, band_w, scheme)
+
+
+def check_packed(band_w: int) -> None:
+    """The packed-window variant has no wavefront dispatch in the JAX
+    package: its VMEM guard raises beyond the row-blocked reach."""
+    if not score_reach(band_w):
+        raise ValueError(
+            f"band_w={band_w}: packed windows are served to band_w <= 971 "
+            "(nvbio_tpu/ops/banded_dp.py's VMEM guard raises beyond)")
 
 
 def launch(patterns, plens, tlens, quals=None, *, texts=None, packed=None,
@@ -141,7 +149,12 @@ def banded_score_long(patterns, plens, texts, tlens, quals=None, *,
     """K4 score-only: banded Gotoh score + sink of long patterns over
     symbol windows.  patterns (NB, Lp); texts (NB, Lt); plens, tlens
     (NB,); quals (NB, Lp) or None (= 40).  Returns dict of (NB,) int32
-    ``score``, ``p_end``, ``t_end``."""
+    ``score``, ``p_end``, ``t_end``.  Bands beyond K4's reach go to K5
+    (raw twin values, as in the JAX package)."""
+    if not score_reach(band_w):
+        return wavefront_dp.wavefront_score(patterns, plens, texts, tlens,
+                                            quals, scheme=scheme, atype=atype,
+                                            band_w=band_w)
     check_reach(patterns.shape[1], band_w, scheme, with_dirs=False)
     if _launch.on_cpu(patterns, plens, texts, tlens, quals):
         return banded_score_batch(patterns, plens, texts, tlens, quals,

@@ -48,8 +48,8 @@ def main(argv=None):
     if args.device_occ or args.accelerator:
         p.error("--device-occ/--accelerator: the port builds on the host")
 
-    from nvbio_tpu.io.fasta import read_fasta
-    from nvbio_tpu.io.genome import prepare_genome
+    from ..io.fasta import read_fasta
+    from ..io.genome import prepare_genome
 
     from ..fmindex.build import build_fm_arrays, build_kmer_lut, suffix_array
     from ..io.index_file import save_index, write_pac

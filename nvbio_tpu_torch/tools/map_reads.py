@@ -119,8 +119,8 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from nvbio_tpu.io.sam import SamWriter
-    from nvbio_tpu.io.sequence import ReadBatchIterator, open_read_iter
+    from ..io.sam import SamWriter
+    from ..io.sequence import ReadBatchIterator, open_read_iter
 
     from ..alignment.types import GotohScheme
     from ..device import resolve_device

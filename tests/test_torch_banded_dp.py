@@ -220,6 +220,35 @@ def test_packed_windows_match_symbol_windows_and_pallas(atype):
     _assert_res_equal(got, ref, "vs pallas packed")
 
 
+def test_packed_windows_serve_any_band_on_cpu():
+    """Beyond K4's reach (band_w 1000) the packed path on the CPU still
+    serves the call with its plain version, as the JAX mapper on a CPU
+    does with its twin over symbol windows."""
+    rng = np.random.default_rng(5)
+    n, nb, lp, w = 5_000, 6, 24, 1000
+    lt = lp + 2 * w
+    genome = rng.integers(0, 4, n).astype(np.int8)
+    ws = rng.integers(0, n - lt, nb).astype(np.int32)
+    ws[0] = n - 300  # a genome-end window
+    gpad = np.concatenate([genome, np.full(lt, 7, np.int8)])
+    texts = np.stack([gpad[s:s + lt] for s in ws])
+    pats = np.stack([gpad[s + w // 2:s + w // 2 + lp] for s in ws])
+    pats[rng.random(pats.shape) < 0.1] = 2
+    plens = np.full(nb, lp, np.int32)
+    tlens = np.clip(n - ws, 0, lt).astype(np.int32)
+    quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
+    atype = AlignmentType.SEMI_GLOBAL
+    kw = dict(scheme=GotohScheme(), atype=atype, band_w=w)
+    tp, tpl, tws, ttl, tq = (torch.from_numpy(a)
+                             for a in (pats, plens, ws, tlens, quals))
+    got = banded_dp.banded_score_packed(
+        tp, tpl, banded_dp.pack_genome_words(genome), tws, ttl, tq, **kw)
+    want = jax_score(*map(jnp.asarray, (pats, plens, texts, tlens, quals)),
+                     scheme=JScheme(), atype=JAType(atype.value), band_w=w)
+    _assert_res_equal(got, want, "vs twin at band_w 1000")
+    assert (got["score"].numpy() > -(1 << 29)).all()
+
+
 def test_pack_genome_words_rejects_n():
     with pytest.raises(ValueError, match="N/ambiguity"):
         banded_dp.pack_genome_words(np.array([0, 1, 4, 2], np.int8))

@@ -162,7 +162,9 @@ def test_band_reach_matches_jax():
     assert max(b for b in range(1, 1001) if long_dp.dirs_reach(b)) == 815
 
 
-def test_beyond_reach_raises_like_jax():
+def test_beyond_reach_raises_like_jax(monkeypatch):
+    """Score-only beyond K4's reach dispatches to K5 (band 972, as
+    ``banded_score_long_pallas`` does); directions beyond 815 raise."""
     lp = 600
     pats = torch.zeros((1, lp), dtype=torch.int8)
     plens = torch.full((1,), lp, dtype=torch.int32)
@@ -171,9 +173,16 @@ def test_beyond_reach_raises_like_jax():
     def texts(band_w):
         return torch.zeros((1, lp + 2 * band_w), dtype=torch.int8)
 
-    with pytest.raises(NotImplementedError, match="K5.*ROADMAP.md"):
-        banded_dp.banded_score(pats, plens, texts(972), plens, band_w=972,
-                               **kw)
+    calls = []
+    monkeypatch.setattr(long_dp.wavefront_dp, "wavefront_score",
+                        lambda *a, **k: calls.append(k["band_w"]) or "K5")
+    assert banded_dp.banded_score(pats, plens, texts(971), plens, band_w=971,
+                                  **kw) != "K5"
+    assert calls == []
+    assert banded_dp.banded_score(pats, plens, texts(972), plens, band_w=972,
+                                  **kw) == "K5"
+    assert calls == [972]
+    assert not _band_fits(972, 256, with_dirs=False)
     with pytest.raises(ValueError, match="815"):
         banded_dp.banded_directions(pats, plens, texts(816), plens,
                                     band_w=816, **kw)

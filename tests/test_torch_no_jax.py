@@ -1,7 +1,9 @@
 """The port must run where JAX is not installed (the GPU machine has
-none): in a subprocess whose import system refuses ``jax``, import every
-``nvbio_tpu_torch`` module, build an index and map a tiny dataset on the
-CPU.  Also: the CLI's device and unported-flag errors."""
+none) and keeps its own copies of the host code it needs: in a
+subprocess whose import system refuses ``jax`` and every ``nvbio_tpu``
+module, import every ``nvbio_tpu_torch`` module, build an index and map
+a tiny dataset on the CPU.  Also: the CLI's device and unported-flag
+errors."""
 
 import os
 import subprocess
@@ -17,13 +19,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GUARDED = textwrap.dedent("""
     import importlib, pkgutil, sys
 
-    class BlockJax:
+    class BlockJaxAndReference:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if (name in ("jax", "nvbio_tpu")
+                    or name.startswith(("jax.", "jaxlib", "nvbio_tpu."))):
                 raise ImportError(f"blocked import of {name}")
             return None
 
-    sys.meta_path.insert(0, BlockJax())
+    sys.meta_path.insert(0, BlockJaxAndReference())
     import nvbio_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(
         nvbio_tpu_torch.__path__, "nvbio_tpu_torch.")]
@@ -32,9 +35,9 @@ GUARDED = textwrap.dedent("""
     print("imported", len(mods))
 
     import numpy as np
-    from nvbio_tpu.io.fasta import write_fasta
-    from nvbio_tpu.io.fastq import write_fastq
-    from nvbio_tpu.utils.simulate import random_genome, simulate_reads
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
     from nvbio_tpu_torch.tools.build_index import main as build
     from nvbio_tpu_torch.tools.map_reads import main as mapr
 
@@ -47,7 +50,8 @@ GUARDED = textwrap.dedent("""
     assert build([f"{out}/g.fa", f"{out}/g.npz", "--lut-k", "8"]) == 0
     assert mapr(["-x", f"{out}/g.npz", "-U", f"{out}/r.fq", "-S",
                  f"{out}/o.sam", "--device", "cpu", "--batch", "32"]) == 0
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
     recs = [l for l in open(f"{out}/o.sam") if not l.startswith("@")]
     print("records", len(recs),
           "aligned", sum(l.split("\\t")[1] != "4" for l in recs))
