@@ -52,16 +52,35 @@ failure:
    4000 bp at band_w 2000, each with one planted deletion past the 767
    band ladder (tests/test_wide_cigar.py's forced-gap scheme), with the
    counts reset just before: K5 with flags launched, every lane has a
-   CIGAR that re-scores to its score and holds its planted D run.
+   CIGAR that re-scores to its score and holds its planted D run;
+14. the int16 opt-in: banded_score(compute_dtype="int16") at K1's row
+   shape (32 767 x 128, band_w 15) and at a wide band inside the int16
+   guard (8192 x 16, band_w 700: the scratch tier), all three types,
+   with the counts reset just before: only K7 launched, bit-identical to
+   its plain version; CUDA-event times of K7, of K1 at the same shape
+   (in turns) and of the plain version;
+15. the golden paired-end dataset through map_reads -1/-2 --device cuda:
+   SAM identical to tests/data/golden_pe.sam.gz (ignoring @PG), K2, K3
+   and K4 (the rescue) launched;
+16. the paired-end path at real size on the chr20-length index: 50 000
+   pairs of 2 x 100 bp from simulate_pairs(insert 280 +- 25, 2% errors),
+   5% of them with every 12th base of mate 2 flipped so that rescue
+   places them, map_reads -1/-2 --batch 4096 --device cuda with the
+   counts reset just before: K2, K3 and K4 launched, pairs rescued,
+   accuracy bars, pairs/s, proper and rescued shares, peak memory, a
+   per-stage breakdown of one batch, and the first 128 pairs mapped
+   under --device cuda and --device cpu to identical SAM lines.
 
 The last line is {"ok": true, "device": {...}}; the line before it
-lists the ported kernels (K1-K6, K5 as its score and its flag entry
+lists the ported kernels (K1-K7, K5 as its score and its flag entry
 points) as JSON, with the launches of the path that runs each (K2, K3:
 the short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark;
-K5 with flags: the pass-3 run), the time and plain time at the phase
-shapes, and the least time the card could take for the same call
-(bound_ms: int32 operations over 132 SMs x 64 lanes x the max SM clock,
-or bytes over 3.35 TB/s, whichever is larger).  Bulk files go to
+K5 with flags: the pass-3 run; K7: the int16 opt-in phase), the time
+and plain time at the phase shapes, and the least time the card could
+take for the same call (bound_ms: int32 operations over 132 SMs x 64
+lanes x the max SM clock, K7's int16 operations over twice that, or
+bytes over 3.35 TB/s, whichever is larger; the DP kernels' operations
+over the in-band cells the call needs, band_cells).  Bulk files go to
 .chip_smoke_work/ (removed at the end), a copy of the numbers to
 result.json in OUT, with nvcc's ptxas report beside it.  Imports no JAX
 and nothing of nvbio_tpu: a finder refuses both.
@@ -96,6 +115,11 @@ N_LONG, LONG_LEN, LONG_CPU = 20_000, 2_000, 128
 WIDE_NB, WIDE_DIRS_NB, WIDE_LP, WIDE_W = 128, 8, 4_000, 2_000
 # Myers: sw_benchmark's 2^19 x 100 bp, and a 32-word pattern length
 MYERS_SHAPES = ((1 << 19, 100, 130), (8_192, 1_000, 1_060))
+# K7's wide shape: a 1401-cell band at Lp 16, inside the int16 guard
+K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W = 8_192, 16, 700
+# the paired-end run: pairs, the share with a rescue-only mate 2, the
+# pairs mapped on both devices
+N_PAIRS, PE_RESCUE_SHARE, PE_CPU = 50_000, 0.05, 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell, counted from the kernels' cell updates:
@@ -129,10 +153,12 @@ sys.meta_path.insert(0, _BlockJax())
 INT32_PEAK = None
 
 
-def bound(ops, nbytes):
+def bound(ops, nbytes, per_lane=1):
     """(bound_ms, bound_by): the least time the card could take for
-    ``ops`` int32 operations and ``nbytes`` bytes moved."""
-    t_ops, t_bytes = ops / INT32_PEAK, nbytes / HBM_BYTES_PER_S
+    ``ops`` operations and ``nbytes`` bytes moved; ``per_lane``
+    operations a 32-bit lane does at once (2 for int16 pairs)."""
+    t_ops = ops / (INT32_PEAK * per_lane)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -362,16 +388,16 @@ def phase_kernels(torch, np):
             f"the plain versions over {NB} windows ({n_ok} with a path)")
         if atype != AlignmentType.SEMI_GLOBAL:  # the mapper's type
             continue
-        cells = int(plens.clamp(max=LP).sum()) * (2 * BAND_W + 1)
-        cells2 = NB * LP * (2 * BAND_W + 1)
+        cells = band_cells(torch, plens, tlens, BAND_W)
+        flag_bytes = NB * LP * (2 * BAND_W + 1)  # K2 writes every row
         io = (pats, quals, plens, tlens)
         for name, kern, plain, c, ops, nbytes in (
                 ("K1", k1, p1, cells, GOTOH_OPS,
                  dp_bytes(*io, texts, out_bytes=12 * NB)),
                 ("K3", k3, p3, cells, GOTOH_OPS,
                  dp_bytes(*io, gwords, ws, out_bytes=12 * NB)),
-                ("K2", k2, p2, cells2, GOTOH_FLAG_OPS,
-                 dp_bytes(*io, texts, out_bytes=12 * NB + cells2))):
+                ("K2", k2, p2, cells, GOTOH_FLAG_OPS,
+                 dp_bytes(*io, texts, out_bytes=12 * NB + flag_bytes))):
             ms, pms = cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2)
             bms, by = bound(c * ops, nbytes)
             out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
@@ -444,15 +470,14 @@ def phase_k4(torch, np):
             f"{LONG_W})")
         if atype != AlignmentType.SEMI_GLOBAL:  # the mapper's type
             continue
-        band = 2 * LONG_W + 1
-        cells = int(plens.clamp(max=LONG_LP).sum()) * band
-        cells_d = nd * LONG_LP * band
+        cells = band_cells(torch, plens, tlens, LONG_W)
+        cells_d = band_cells(torch, plens[:nd], tlens[:nd], LONG_W)
         ms, pms = cuda_ms(torch, k4, 10), cuda_ms(torch, p4, 2)
         dms, dpms = cuda_ms(torch, k4d, 10), cuda_ms(torch, p4d, 2)
         bms, by = bound(cells * GOTOH_OPS,
                         dp_bytes(*args, out_bytes=12 * LONG_NB))
-        dbms, dby = bound(cells_d * GOTOH_FLAG_OPS,
-                          dp_bytes(*dargs, out_bytes=12 * nd + cells_d))
+        dbms, dby = bound(cells_d * GOTOH_FLAG_OPS, dp_bytes(
+            *dargs, out_bytes=12 * nd + nd * LONG_LP * (2 * LONG_W + 1)))
         out = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                "dirs_bound_ms": dbms, "dirs_bound_by": dby,
                "gcups": cells / ms / 1e6,
@@ -500,7 +525,7 @@ def phase_wide_band(torch, np):
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
         if counts != {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 0,
-                      "K5_dirs": 0, "K6": 0}:
+                      "K5_dirs": 0, "K6": 0, "K7": 0}:
             fail(f"band_w {LONG_W} calls did not all route to K4: {counts}")
         w1 = banded_score_batch(*args, **kw)
         w3 = banded_dp.banded_score_packed_plain(pats, plens, gwords, ws,
@@ -561,14 +586,111 @@ def phase_bench_k1(torch, np):
     err = max_abs_err(torch, list(got.values()), list(want.values()))
     if err:
         fail(f"K1 differs from its plain version at bench shape: {err}")
-    cells = BENCH_NB * BENCH_LP * (2 * BAND_W + 1)
+    cells = band_cells(torch, plens, tlens, BAND_W)
     ms = cuda_ms(torch, lambda: banded_dp.banded_score(*args, **kw), 5)
     pms = cuda_ms(torch, lambda: banded_score_batch(*args, **kw), 1)
+    bms, by = bound(cells * GOTOH_OPS,
+                    dp_bytes(*args, out_bytes=12 * BENCH_NB))
     log(f"[bench] K1 {BENCH_NB} x {BENCH_LP} bp x band {2 * BAND_W + 1}: "
         f"{ms:.2f} ms = {cells / ms / 1e6:.1f} GCUPS (plain version "
-        f"{pms:.1f} ms = {cells / pms / 1e6:.2f} GCUPS), bit-identical")
+        f"{pms:.1f} ms = {cells / pms / 1e6:.2f} GCUPS), bit-identical; "
+        f"bound {bms:.3f} ms ({by}), share {bms / ms:.3f}")
     return {"ms": ms, "gcups": cells / ms / 1e6, "plain_ms": pms,
-            "plain_gcups": cells / pms / 1e6}
+            "plain_gcups": cells / pms / 1e6, "bound_ms": bms,
+            "bound_by": by}
+
+
+def phase_k7(torch, np):
+    """The int16 opt-in: banded_score(compute_dtype="int16") at K1's row
+    shape and at a wide band inside the guard, all three types, against
+    K7's plain version; K7 and K1 timed in turns at the row shape."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch16
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+    from nvbio_tpu_torch.ops import banded_dp
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 9)
+    genome = rng.integers(0, 4, 4_000_000).astype(np.int8)
+    shapes = {"row": (NB, LP, BAND_W),
+              "wide": (K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W)}
+    inputs = {name: [torch.from_numpy(a).to(dev) for a in dp_inputs(
+        np, nb, lp, w, genome, rng)] for name, (nb, lp, w) in shapes.items()}
+
+    def call_args(name, atype):
+        pats, plens, texts, win_tlens, quals, _, global_tlens = inputs[name]
+        tlens = global_tlens if atype == AlignmentType.GLOBAL else win_tlens
+        kw = dict(scheme=GotohScheme(match=2 if atype == AlignmentType.LOCAL
+                                     else 0), atype=atype,
+                  band_w=shapes[name][2])
+        return (pats, plens, texts, tlens, quals), kw
+
+    # the path's run: every int16 call of the phase, counts reset before
+    banded_dp.reset_launch_counts()
+    got = {}
+    for name, (nb, lp, w) in shapes.items():
+        for atype in AlignmentType:
+            args, kw = call_args(name, atype)
+            if banded_dp.route(lp, w, False, compute_dtype="int16",
+                               scheme=kw["scheme"]) != "K7":
+                fail(f"K7 phase: {name} shape ({lp}, band_w {w}) is outside"
+                     " the int16 guard")
+            got[name, atype] = banded_dp.banded_score(
+                *args, compute_dtype="int16", **kw)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    if launches["K7"] != len(got) or sum(launches.values()) != len(got):
+        fail(f"the int16 opt-in calls did not all launch K7: {launches}")
+    keys = ("score", "p_end", "t_end")
+    worst, out = 0, {"launches": launches["K7"]}
+    for (name, atype), r in got.items():
+        args, kw = call_args(name, atype)
+        w = banded_score_batch16(*args, **kw)
+        err = max_abs_err(torch, [r[k] for k in keys], [w[k] for k in keys])
+        n_ok = int((w["score"] > -(1 << 29)).sum())
+        if err:
+            fail(f"K7 differs from its plain version ({name}, {atype.name}):"
+                 f" max_abs_err {err}")
+        if n_ok < args[0].shape[0] // 3:
+            fail(f"K7 {name} {atype.name}: only {n_ok} lanes have a path")
+        worst = max(worst, err)
+        log(f"[k7] {name} {tuple(args[0].shape)} band_w {kw['band_w']} "
+            f"{atype.name}: bit-identical to the plain version ({n_ok} lanes"
+            " with a path)")
+    for name, (nb, lp, w) in shapes.items():
+        args, kw = call_args(name, AlignmentType.SEMI_GLOBAL)
+        cells = band_cells(torch, args[1], args[3], w)
+
+        def k7():
+            return banded_dp.banded_score(*args, compute_dtype="int16", **kw)
+
+        def k1():
+            return banded_dp.banded_score(*args, **kw)
+
+        def p7():
+            return banded_score_batch16(*args, **kw)
+
+        # K7 and the int32 call's kernel (K1; K4 past 64 cells) in turns
+        k32 = banded_dp.route(lp, w, False)
+        t7a, t1a = cuda_ms(torch, k7, 10), cuda_ms(torch, k1, 10)
+        t1b, t7b = cuda_ms(torch, k1, 10), cuda_ms(torch, k7, 10)
+        ms, k1_ms = (t7a + t7b) / 2, (t1a + t1b) / 2
+        pms = cuda_ms(torch, p7, 2)
+        bms, by = bound(cells * GOTOH_OPS,
+                        dp_bytes(*args, out_bytes=12 * nb), per_lane=2)
+        out[name] = {"ms": ms, "ms_turns": [t7a, t7b], "int32_kernel": k32,
+                     "int32_ms": k1_ms, "int32_ms_turns": [t1a, t1b],
+                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                     "cells": cells, "gcups": cells / ms / 1e6,
+                     "int32_gcups": cells / k1_ms / 1e6}
+        log(f"[k7] SEMI_GLOBAL {name} NB={nb} Lp={lp} band_w={w}: K7 "
+            f"{t7a:.3f} / {t7b:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), "
+            f"{k32} {t1a:.3f} / {t1b:.3f} ms ({cells / k1_ms / 1e6:.1f} "
+            f"GCUPS), plain {pms:.1f} ms; bound {bms:.3f} ms ({by}), share "
+            f"{bms / ms:.3f}")
+    row = out["row"]
+    return dict(out, ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                max_abs_err=worst)
 
 
 def wide_inputs(np, nb, lp, band_w, rng):
@@ -598,16 +720,18 @@ def wide_inputs(np, nb, lp, band_w, rng):
     return pats, plens, texts, tlens, quals
 
 
-def k5_cells(torch, plens, tlens, band_w):
-    """In-band cells a K5 call needs (score-only or with flags): rows
-    1..plen, columns 0..tlen."""
-    cells = 0
-    for p, t in zip(plens.tolist(), tlens.tolist()):
-        r = torch.arange(1, max(p, 0) + 1, dtype=torch.int64)
-        lo = (r - band_w).clamp(min=0)
-        hi = (r + band_w).clamp(max=t)
-        cells += int((hi - lo + 1).clamp(min=0).sum())
-    return cells
+def band_cells(torch, plens, tlens, band_w):
+    """In-band cells a banded Gotoh call needs, summed over its lanes:
+    rows 1..plen, and in row r the columns r - band_w .. r + band_w that
+    lie in 0..tlen (the valid cells of the plain versions' row loop).
+    The count for every score bound and GCUPS figure of K1-K5 and K7."""
+    p = plens.to(torch.int64)
+    t = tlens.to(torch.int64)
+    cells = torch.zeros((), dtype=torch.int64, device=p.device)
+    for r in range(1, int(p.max()) + 1 if p.numel() else 1):
+        n = (t.clamp(max=r + band_w) - max(r - band_w, 0) + 1).clamp(min=0)
+        cells += torch.where(p >= r, n, 0).sum()
+    return int(cells)
 
 
 def phase_k5(torch, np):
@@ -654,7 +778,7 @@ def phase_k5(torch, np):
             f"{WIDE_LP}, Lt {WIDE_LP + 2 * WIDE_W}, band_w {WIDE_W})")
         if atype != AlignmentType.SEMI_GLOBAL:  # sw_benchmark's type
             continue
-        cells = k5_cells(torch, plens.cpu(), tlens.cpu(), WIDE_W)
+        cells = band_cells(torch, plens, tlens, WIDE_W)
         ms, pms = cuda_ms(torch, k5, 5), cuda_ms(torch, p5, 1)
         bms, by = bound(cells * GOTOH_OPS,
                         dp_bytes(*args, out_bytes=12 * WIDE_NB))
@@ -700,7 +824,7 @@ def phase_k5(torch, np):
         worst = max(worst, err)
         # the cells the call needs (lane 0 has plen 0, lane 1 tlen 0,
         # lanes 2 and 3 are short), 4 bits of flags each
-        cells_d = k5_cells(torch, plens[:nd].cpu(), tlens[:nd].cpu(), WIDE_W)
+        cells_d = band_cells(torch, plens[:nd], tlens[:nd], WIDE_W)
         row_cells_d = nd * WIDE_LP * (2 * WIDE_W + 1)
         dms, dpms = cuda_ms(torch, k5d, 3), cuda_ms(torch, p5d, 1)
         dbms, dby = bound(cells_d * GOTOH_FLAG_OPS,
@@ -1032,6 +1156,239 @@ def phase_golden(torch):
     return counts
 
 
+def write_pairs(path1, path2, sim, s2=None, n=None):
+    from nvbio_tpu_torch.io.fastq import write_fastq
+
+    s2 = sim["seqs2"] if s2 is None else s2
+    n = len(s2) if n is None else n
+    write_fastq(path1, [(f"p{i}", sim["seqs1"][i].astype("uint8"),
+                         sim["quals1"][i]) for i in range(n)])
+    write_fastq(path2, [(f"p{i}", s2[i].astype("uint8"), sim["quals2"][i])
+                        for i in range(n)])
+
+
+def phase_golden_pe(torch):
+    """The golden paired-end dataset (made as tests/test_golden.py:42
+    makes it) through map_reads -1/-2 --device cuda."""
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.ops import banded_dp
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_pairs
+
+    d = os.path.join(WORK, "golden_pe")
+    os.makedirs(d, exist_ok=True)
+    g = random_genome(150_000, seed=777)
+    write_fasta(f"{d}/g.fa", [("golden_pe_ref", g)])
+    sim = simulate_pairs(g, 120, 100, insert_mean=280, insert_sd=25,
+                         error_rate=0.02, seed=778)
+    write_pairs(f"{d}/r1.fq", f"{d}/r2.fq", sim)
+    build([f"{d}/g.fa", f"{d}/g.npz"])
+    banded_dp.reset_launch_counts()
+    mapr(["-x", f"{d}/g.npz", "-1", f"{d}/r1.fq", "-2", f"{d}/r2.fq", "-S",
+          f"{d}/out.sam", "--device", DEV, "--batch", "128"])
+    counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    got = [ln for ln in open(f"{d}/out.sam") if not ln.startswith("@PG")]
+    want = list(gzip.open(os.path.join(ROOT, "tests", "data",
+                                       "golden_pe.sam.gz"), "rt"))
+    if got != want:
+        n_diff = sum(a != b for a, b in zip(got, want))
+        fail(f"golden PE SAM differs under --device cuda ({n_diff} lines, "
+             f"{len(got)} vs {len(want)})")
+    if not all(counts[k] > 0 for k in ("K2", "K3", "K4")):
+        fail(f"golden PE run did not launch K2, K3 and K4: {counts}")
+    log(f"[golden_pe] SAM byte-identical to golden_pe.sam.gz under --device "
+        f"cuda ({len(got)} lines; launches {counts})")
+    return counts
+
+
+def pe_stage_breakdown(torch, np, npz, r1_fq, r2_fq, batch=4096):
+    """Host-clock ms per stage (synchronised) of full paired-end batches
+    through PairedMapper.map_pairs_stream and to_sam_records_pe, as the
+    CLI runs them; the median of batches 2-4.  Wrappers time the upload,
+    pe_map_batch (and inside it the candidate stage and the two rescue
+    calls, the rescue's DP calls with CUDA events) and the per-mate
+    tracebacks; the host finish is what is left of the batch."""
+    import itertools
+
+    from nvbio_tpu_torch.io.fastq import FastqBatchReader
+    from nvbio_tpu_torch.io.index_file import load_index
+    from nvbio_tpu_torch.models import paired as P
+    from nvbio_tpu_torch.models.params import MapperParams
+    from nvbio_tpu_torch.strings.string_set import pack_reads
+
+    dev = torch.device(DEV)
+    fm, ssa, genome, meta = load_index(npz, device=dev)
+    params = MapperParams(seed_interval_fn="S", seed_interval_a=1.0,
+                          seed_interval_b=1.15, batch_size=batch,
+                          max_read_len=320, sa_sample=meta["sa_sample"],
+                          lut_k=meta["lut_k"])
+    m = P.PairedMapper(fm, ssa, genome, params=params, lut=meta["lut"])
+    # four batches, read and packed as the CLI's packed_pe does, before
+    # any clock starts
+    batches = []
+    for (names, s1, q1), (_, s2, q2) in itertools.islice(zip(
+            FastqBatchReader(r1_fq, batch), FastqBatchReader(r2_fq, batch)),
+            4):
+        r1, l1, qm1, _ = pack_reads(s1, q1, max_len=320)
+        r2, l2, qm2, _ = pack_reads(s2, q2, max_len=320)
+        batches.append((names, r1, l1, qm1, r2, l2, qm2))
+    t = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            t[name] = t.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def events(name, fn):
+        def run(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            stop.record()
+            stop.synchronize()
+            t[name] = t.get(name, 0.0) + start.elapsed_time(stop)
+            return out
+        return run
+
+    cand, resc = "candidate stage, 2R reads (K3)", "rescue, 2 calls (K4)"
+    k4ev = "of which the K4 calls (events)"
+    tb = "traceback, 2 mates (K2) + walk"
+    wrap = {"candidate_stage": timed(cand, P.candidate_stage),
+            "_rescue": timed(resc, P._rescue),
+            "banded_score": events(k4ev, P.banded_score),
+            "pe_map_batch": timed("pe_map_batch", P.pe_map_batch),
+            "traceback_walk_batch": timed(tb, P.traceback_walk_batch)}
+    saved = {name: getattr(P, name) for name in wrap}
+    m._stage_pair_batch = timed("upload", m._stage_pair_batch)
+    rows = []
+    try:
+        for name, fn in wrap.items():
+            setattr(P, name, fn)
+        stream = m.map_pairs_stream(iter(batches))
+        for _ in batches:
+            t.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = next(stream)
+            recs = m.to_sam_records_pe(*out)
+            total = (time.perf_counter() - t0) * 1e3
+            assert len(recs) == 2 * len(out[0])
+            rows.append({
+                "upload": t["upload"], cand: t[cand],
+                "pairing + MAPQ": t["pe_map_batch"] - t[cand] - t[resc],
+                resc: t[resc], k4ev: t[k4ev], tb: t[tb],
+                "host finish + SAM records": (total - t["upload"]
+                                              - t["pe_map_batch"] - t[tb]),
+                "batch": total})
+    finally:
+        for name, fn in saved.items():
+            setattr(P, name, fn)
+    rows = rows[1:] or rows  # the first batch warms the allocator
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
+def phase_pe(torch, np, g):
+    """50 000 pairs on the chr20-length index through map_reads -1/-2
+    --batch 4096 --device cuda, 5% of them with mate 2's seeds broken."""
+    from nvbio_tpu_torch.ops import banded_dp
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.utils.simulate import simulate_pairs
+
+    d = os.path.join(WORK, "chr20len")
+    t0 = time.perf_counter()
+    sim = simulate_pairs(g, N_PAIRS, 100, insert_mean=280, insert_sd=25,
+                         error_rate=0.02, seed=SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    flip = rng.random(N_PAIRS) < PE_RESCUE_SHARE
+    s2 = sim["seqs2"].copy()
+    for k in range(4, 100, 12):  # tests/test_paired.py:179
+        s2[flip, k] = (s2[flip, k] + 1) % 4
+    write_pairs(f"{d}/pe1.fq", f"{d}/pe2.fq", sim, s2)
+    write_pairs(f"{d}/pe1_cpu.fq", f"{d}/pe2_cpu.fq", sim, s2, n=PE_CPU)
+    log(f"[pe] {N_PAIRS} pairs ({int(flip.sum())} with mate 2's seeds "
+        f"broken) made in {time.perf_counter() - t0:.1f}s")
+
+    # the paired-end path's run: launch counts from here on are its own
+    banded_dp.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mapr(["-x", f"{d}/g.npz", "-1", f"{d}/pe1.fq", "-2", f"{d}/pe2.fq",
+          "-S", f"{d}/pe.sam", "--device", DEV, "--batch", "4096",
+          "--stats", f"{d}/pe_stats.json"])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = json.load(open(f"{d}/pe_stats.json"))
+    recs = sam_records(f"{d}/pe.sam")
+    if len(recs) != 2 * N_PAIRS:
+        fail(f"{len(recs)} SAM records for {N_PAIRS} pairs")
+    if not all(launches[k] > 0 for k in ("K2", "K3", "K4")):
+        fail(f"the paired-end run did not launch K2, K3 and K4 (the "
+             f"rescue): {launches}")
+    if stats["rescued"] < 1:
+        fail(f"the paired-end run rescued no pair: {stats}")
+    aligned = correct = 0
+    for i, ln in enumerate(recs):
+        f = ln.split("\t", 4)
+        flag, pos = int(f[1]), int(f[3])
+        if flag & 4:
+            continue
+        aligned += 1
+        r = i // 2
+        start = int(sim["true_pos"][r])
+        end = start + int(sim["insert"][r])
+        if i % 2 == 0:
+            ok = not flag & 16 and abs(pos - 1 - start) <= 8
+        else:
+            ok = flag & 16 and abs(pos - 1 + 100 - end) <= 8
+        correct += bool(ok)
+    frac_al = aligned / (2 * N_PAIRS)
+    frac_ok = correct / max(aligned, 1)
+    proper = stats["proper_pairs"] / N_PAIRS
+    rescued = stats["rescued"] / N_PAIRS
+    log(f"[pe] map_reads -1/-2 --device cuda --batch 4096: {N_PAIRS} pairs "
+        f"in {stats['map_s']:.2f}s = {stats['pairs_per_s']:.0f} pairs/s "
+        f"(index load {stats['load_s']:.1f}s not counted); peak "
+        f"{peak / 2**30:.2f} GiB; proper {proper:.4f}, rescued "
+        f"{rescued:.4f} (rescue_dropped {stats['rescue_dropped']}), "
+        f"discordant {stats['discordant']}; mates aligned {frac_al:.4f}, "
+        f"correct {frac_ok:.4f} of aligned; launches {launches}")
+    if frac_al < 0.95 or frac_ok < 0.90 or proper < 0.90:
+        fail(f"paired-end bars missed: aligned {frac_al}, correct "
+             f"{frac_ok}, proper {proper}")
+
+    sams = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        mapr(["-x", f"{d}/g.npz", "-1", f"{d}/pe1_cpu.fq", "-2",
+              f"{d}/pe2_cpu.fq", "-S", f"{d}/pe_{dev}.sam", "--device", dev,
+              "--batch", str(PE_CPU)])
+        sams[dev] = (sam_records(f"{d}/pe_{dev}.sam"),
+                     time.perf_counter() - t0)
+    if sams[DEV][0] != sams["cpu"][0]:
+        n_diff = sum(a != b for a, b in zip(sams[DEV][0], sams["cpu"][0]))
+        fail(f"paired-end: --device cpu SAM differs from --device cuda on "
+             f"the first {PE_CPU} pairs ({n_diff} records)")
+    log(f"[pe] first {PE_CPU} pairs with --batch {PE_CPU}: identical SAM "
+        f"records under --device cuda ({sams[DEV][1]:.1f}s) and --device "
+        f"cpu ({sams['cpu'][1]:.1f}s)")
+
+    stages = pe_stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/pe1.fq",
+                                f"{d}/pe2.fq")
+    log("[pe] one 4096-pair batch, ms per stage (synchronised, median of "
+        "3): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    return {"launches": launches, "peak_bytes": peak, "stats": stats,
+            "proper": proper, "rescued": rescued, "aligned": frac_al,
+            "correct": frac_ok, "stages_ms": stages,
+            "cuda_subset_s": sams[DEV][1], "cpu_subset_s": sams["cpu"][1]}
+
+
 def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
                     band_w=15):
     """Host-clock ms per stage (synchronised) for full batches of a
@@ -1296,8 +1653,13 @@ def main():
         result["wide_band"] = phase_wide_band(torch, np)
         result["bench_k1"] = phase_bench_k1(torch, np)
         torch.cuda.empty_cache()
+        result["kernels"]["K7"] = phase_k7(torch, np)
+        torch.cuda.empty_cache()
         result["golden_launches"] = phase_golden(torch)
+        result["golden_pe_launches"] = phase_golden_pe(torch)
         result["real"], genome = phase_real_size(torch, np)
+        torch.cuda.empty_cache()
+        result["pe"] = phase_pe(torch, np, genome)
         torch.cuda.empty_cache()
         result["long"] = phase_long_reads(torch, np, genome)
     finally:
@@ -1313,7 +1675,8 @@ def main():
     paths = {"short-read run": result["real"]["launches"],
              "long-read run": result["long"]["launches"],
              "sw_benchmark --long": result["sw_benchmark"]["launches"],
-             "pass 3": result["pass3"]["launches"]}
+             "pass 3": result["pass3"]["launches"],
+             "int16 opt-in phase": {"K7": result["kernels"]["K7"]["launches"]}}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # (name, source, replaces, the path whose run launches it)
@@ -1331,7 +1694,9 @@ def main():
             ("K5_dirs", "wavefront_gotoh.cu",
              "nvbio_tpu/ops/wavefront_dp.py:321", "pass 3"),
             ("K6", "myers.cu", "nvbio_tpu/ops/myers_pallas.py:187",
-             "sw_benchmark --long")):
+             "sw_benchmark --long"),
+            ("K7", "banded_gotoh16.cu", "nvbio_tpu/ops/banded_dp.py:117",
+             "int16 opt-in phase")):
         k = result["kernels"][name]
         n = paths[path][name]
         if n < 1:

@@ -213,3 +213,138 @@ def banded_directions_batch(patterns, plens, texts, tlens, quals=None, *,
     Returns (result dict, dirs (B, Lp, BAND) uint8)."""
     return _banded_dp(patterns, plens, texts, tlens, quals, scheme, atype,
                       band_w, want_dirs=True, twin=twin)
+
+
+#: the int16 DP's masked-cell value (``_make_kernel_masked``'s NEG_VAL)
+NEG16 = -20000
+
+
+def band_pad(band: int) -> int:
+    """The band's extent in the JAX kernels (``banded_dp.py:51``)."""
+    return max(8, (band + 7) // 8 * 8)
+
+
+def banded_score_batch16(patterns, plens, texts, tlens, quals=None, *,
+                         scheme: GotohScheme, atype: AlignmentType,
+                         band_w: int):
+    """K7's plain version: the int16 masked banded Gotoh of
+    ``nvbio_tpu/ops/banded_dp.py`` ``_make_kernel_masked`` (``:117``),
+    transcribed op for op in ``torch.int16`` (so any wrap is the one JAX
+    makes), over the same staging (``:798-820``): patterns padded to
+    Lp8 rows of PAD with quality 0, text row ``i0 + k`` holding window
+    symbol ``i0 + k - w``, PAD outside ``[0, min(Lt, tlen))``; the band
+    padded to ``band_pad(2w + 1)`` cells, the extra cells masked; E by a
+    Kogge-Stone weighted cumulative max whose shifts fill NEG16.
+
+    Its own output contract (not K1's): the int32 reductions of
+    ``:241-286``.  Non-LOCAL snapshots at or below NEG16 // 2 are no
+    path (NEG_INF); GLOBAL reads the goal cell k = tlen - plen + w
+    (NEG_INF outside the band); SEMI_GLOBAL takes the smallest k among
+    the best cells, so a lane with no path gets t_end = max(plen - w,
+    0); LOCAL the earliest row, then the smallest k.  Zero-length
+    patterns give score 0 (LOCAL) or NEG_INF, p_end 0 and k = w.
+    Exact only inside the reference's guard (``ops.banded_dp.int16_ok``)."""
+    i16, i32 = torch.int16, torch.int32
+    eo, ee, fo, fe = gap_penalties(scheme)
+    local = atype == AlignmentType.LOCAL
+    nb, lp = patterns.shape
+    dev = patterns.device
+    BAND = 2 * band_w + 1
+    BP = band_pad(BAND)
+    lp8 = (lp + 7) // 8 * 8
+    lt_pad = lp8 + BP + 16
+    pats = torch.nn.functional.pad(patterns.to(i32), (0, lp8 - lp),
+                                   value=PAD_SYMBOL)
+    quals = (torch.full((nb, lp), 40, dtype=i32, device=dev)
+             if quals is None else quals.to(i32))
+    quals = torch.nn.functional.pad(quals, (0, lp8 - lp), value=0)
+    tx = torch.nn.functional.pad(
+        texts.to(i32), (band_w, max(0, lt_pad - band_w - texts.shape[1])),
+        value=PAD_SYMBOL)[:, :lt_pad]
+    plens32, tlens32 = plens.to(i32), tlens.to(i32)
+    m = torch.arange(lt_pad, dtype=i32, device=dev) - band_w
+    tx = torch.where(m[None, :] >= tlens32[:, None], PAD_SYMBOL, tx)
+
+    def shift_up_by(x, d):
+        """out[k] = x[k - d], NEG16 at k < d."""
+        return torch.nn.functional.pad(x[:, :-d], (d, 0), value=NEG16)
+
+    plen = plens32.to(i16)[:, None]
+    tlen = tlens32.to(i16)[:, None]
+    krange = torch.arange(BP, dtype=i16, device=dev)[None, :]
+    in_band = krange < BAND
+    kk = krange * ee
+    j0 = krange - band_w
+    if atype == AlignmentType.GLOBAL:
+        h0 = torch.where(j0 == 0, 0, torch.where(j0 > 0, -(eo + ee * j0),
+                                                 NEG16)).to(i16)
+    else:
+        h0 = torch.where(j0 >= 0, 0, NEG16).to(i16)
+    H = torch.where((j0 <= tlen) & in_band, h0, NEG16).to(i16)
+    F = torch.full((nb, BP), NEG16, dtype=i16, device=dev)
+    snapH = torch.full((nb, BP), 0 if local else NEG16, dtype=i16,
+                       device=dev)
+    snapR = torch.zeros((nb, BP), dtype=i16, device=dev)
+    # rows past every pattern's end record nothing
+    n_rows = min(lp8, int(plen.max()) if nb else 0)
+    for i0 in range(n_rows):
+        j = krange + (i0 + 1 - band_w)
+        valid = (j >= 0) & (j <= tlen) & in_band
+        q = quals[:, i0:i0 + 1]
+        mm = (scheme.mismatch_min + ((scheme.mismatch_max
+                                      - scheme.mismatch_min)
+                                     * q.clamp(max=40)) // 40).to(i16)
+        t16 = tx[:, i0:i0 + BP].to(i16)
+        p16 = pats[:, i0:i0 + 1].to(i16)
+        is_n = (p16 >= 4) | (t16 >= 4)
+        s = torch.where(is_n, -scheme.n_penalty,
+                        torch.where(t16 == p16, scheme.match, -mm)).to(i16)
+        up_H = torch.nn.functional.pad(H[:, 1:], (0, 1), value=NEG16)
+        up_F = torch.nn.functional.pad(F[:, 1:], (0, 1), value=NEG16)
+        F_new = torch.maximum(up_H - (fo + fe), up_F - fe)
+        Hhat = torch.maximum(H + s, F_new)
+        if local:
+            Hhat = Hhat.clamp(min=0)
+        Hhat_m = torch.where(valid, Hhat, NEG16)
+        Ew = (shift_up_by(Hhat_m, 1) - (eo + ee)) + kk
+        d = 1
+        while d < BP:
+            Ew = torch.maximum(Ew, shift_up_by(Ew, d))
+            d *= 2
+        H_new = torch.maximum(Hhat, Ew - kk)
+        if local:
+            H_new = H_new.clamp(min=0)
+        H = torch.where(valid, H_new, NEG16)
+        F = torch.where(valid, F_new, NEG16)
+        row = i0 + 1
+        if local:  # per-cell running max; the earliest row wins ties
+            upd = (H > snapH) & (row <= plen)
+            snapH = torch.where(upd, H, snapH)
+            snapR = torch.where(upd, row, snapR)
+        else:  # the snapshot of each lane's last pattern row
+            snapH = torch.where(row == plen, H, snapH)
+
+    snap = snapH.to(i32)
+    if not local:
+        snap = torch.where(snap <= NEG16 // 2, NEG_INF, snap)
+    kr = torch.arange(BP, dtype=i32, device=dev)[None, :]
+    if atype == AlignmentType.GLOBAL:
+        k_goal = tlens32 - plens32 + band_w
+        best = torch.where(kr == k_goal[:, None], snap, NEG_INF).max(1).values
+        best_i, best_k = plens32, k_goal
+    elif atype == AlignmentType.SEMI_GLOBAL:
+        best = snap.max(1).values
+        best_k = torch.where(snap == best[:, None], kr, BP).min(1).values
+        best_i = plens32
+    else:
+        best = snap.max(1).values
+        key = snapR.to(i32) * BP + kr
+        best_key = torch.where(snap == best[:, None], key,
+                               1 << 30).min(1).values
+        best_i, best_k = best_key // BP, best_key % BP
+    zero_len = plens32 <= 0
+    best = torch.where(zero_len, 0 if local else NEG_INF, best)
+    best_i = torch.where(zero_len, 0, best_i)
+    best_k = torch.where(zero_len, band_w, best_k)
+    return {"score": best.to(i32), "p_end": best_i.to(i32),
+            "t_end": (best_i + best_k - band_w).clamp(min=0).to(i32)}

@@ -300,23 +300,34 @@ def candidate_stage(fm, ssa, gwords, reads, lens, quals, *,
     return out
 
 
-def top2_finish(cands, lens, params: MapperParams):
-    """Top-2 reduce across strands and candidates + MAPQ."""
-    C = params.max_candidates
-    sc = cands["score"]
+def top2(sc):
+    """(bi, best, second) along dim 1 of ``sc``: the index of the first
+    maximum (jnp.argmax's rule on ties), the maximum, and the maximum
+    with that one entry excluded."""
     cols = torch.arange(sc.shape[1], device=sc.device)
     best = sc.max(dim=1).values
-    # first maximum on ties
     bi = torch.where(sc == best[:, None], cols, sc.shape[1]).min(dim=1).values
     second = torch.where(cols[None, :] == bi[:, None], NEG_INF,
                          sc).max(dim=1).values
+    return bi, best, second
+
+
+def take_at(a, idx):
+    """``a[r, idx[r]]`` for every row r."""
+    return torch.gather(a, 1, idx[:, None])[:, 0]
+
+
+def top2_finish(cands, lens, params: MapperParams):
+    """Top-2 reduce across strands and candidates + MAPQ."""
+    C = params.max_candidates
+    bi, best, second = top2(cands["score"])
     has_second = second > NEG_INF // 2
     smin = _score_min(lens, params)
     smax = _score_perfect(lens, params)
     aligned = (best >= smin) & (lens > 0)
 
     def take(a):
-        return torch.gather(a, 1, bi[:, None])[:, 0]
+        return take_at(a, bi)
 
     mapq = torch.where(
         aligned,

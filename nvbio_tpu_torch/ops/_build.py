@@ -23,8 +23,8 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, "csrc", name)
-           for name in ("banded_gotoh.cu", "long_gotoh.cu",
-                        "wavefront_gotoh.cu", "myers.cu")]
+           for name in ("banded_gotoh.cu", "banded_gotoh16.cu",
+                        "long_gotoh.cu", "wavefront_gotoh.cu", "myers.cu")]
 HEADERS = [os.path.join(_DIR, "csrc", "gotoh_common.cuh")]
 BUILD_DIR = os.path.join(_DIR, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -61,11 +61,14 @@ _SIGNATURES = {
     "k5_wavefront_directions": _DIRS[:-3] + [_P, _P, _P, _P],
     # pats, plens, texts, tlens, nb, lp, lt, global, scratch, out, stream
     "k6_myers": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    # as k1_banded_score, plus the scratch before the stream
+    "k7_banded_score16": _SCORE[:-1] + [_P, _P],
 }
 #: entry points that return a size, not a cudaError_t
 _SIZES = {
     "k5_state_words": ([_I], ctypes.c_int),  # band_w
     "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
+    "k7_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, band_w
 }
 
 

@@ -1,6 +1,6 @@
 """Wrappers for the banded Gotoh CUDA kernels, and their plain versions.
 
-Port of ``nvbio_tpu/ops/banded_dp.py``.  Three kernels, all in
+Port of ``nvbio_tpu/ops/banded_dp.py``.  Three kernels in
 ``csrc/banded_gotoh.cu`` (built by ``_build.py`` at first use):
 
 - K1 ``banded_score``: score + sink over symbol windows
@@ -11,6 +11,13 @@ Port of ``nvbio_tpu/ops/banded_dp.py``.  Three kernels, all in
 - K2 ``banded_directions``: score + sink + per-cell traceback flags in
   the plain version's ``(R, Lp, 2w+1)`` layout, the mapper's traceback
   DP (replaces ``banded_directions_pallas``, ``banded_dp.py:620``).
+
+K7, ``banded_score16`` in ``csrc/banded_gotoh16.cu``, is K1 with int16
+DP state and its own output contract (replaces ``banded_score_pallas``
+with ``compute_dtype="int16"``, ``_make_kernel_masked``
+``banded_dp.py:117``).  ``banded_score(compute_dtype="int16")`` takes it
+when the reference's guard (``int16_ok``) admits the shape, and K1
+otherwise, as the JAX package does.
 
 ``route()`` picks the kernel for a call's shape: patterns longer than
 LONG_THRESHOLD go to K4 (``long_dp.py``, ``csrc/long_gotoh.cu``), as in
@@ -28,9 +35,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..alignment.batched import (PAD_SYMBOL, banded_directions_batch,
-                                 banded_score_batch)
-from ..alignment.types import AlignmentType, GotohScheme
+from ..alignment.batched import (PAD_SYMBOL, band_pad,
+                                 banded_directions_batch,
+                                 banded_score_batch, banded_score_batch16)
+from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
 from . import _build, _launch, long_dp, myers, wavefront_dp
 
 #: widest band (2 * band_w + 1) K1-K3 are instantiated for; wider bands
@@ -107,30 +115,96 @@ def _launch_inputs(patterns, plens, tlens, quals, band_w):
     return _launch.stage_inputs(patterns, plens, tlens, quals)
 
 
-def route(lp: int, band_w: int, with_dirs: bool, packed: bool = False) -> str:
+def int16_ok(lp: int, band_w: int, scheme: GotohScheme) -> bool:
+    """The JAX package's guard for its int16 kernel (``banded_dp.py:872-
+    878``): every reachable score within the int16 headroom, 16-row
+    chunks, and the LOCAL tie-break key in range.  (Its fourth term,
+    on the staged text's length, always holds for unstaged calls.)"""
+    eo, ee, fo, fe = gap_penalties(scheme)
+    band = 2 * band_w + 1
+    lp8 = (lp + 7) // 8 * 8
+    worst = max(eo, fo) + (lp8 + band) * max(
+        ee, fe, scheme.mismatch_max, scheme.n_penalty, abs(scheme.match))
+    return (worst < 9000 and lp8 % 16 == 0
+            and (lp8 + 1) * band_pad(band) < 24576)
+
+
+def route(lp: int, band_w: int, with_dirs: bool, packed: bool = False,
+          compute_dtype: str = "auto",
+          scheme: GotohScheme | None = None) -> str:
     """The kernel a call of this shape launches on a CUDA device: K4 for
-    patterns longer than LONG_THRESHOLD (the JAX package's dispatch) and
-    for bands wider than K1-K3's register capacity (MAX_BAND cells);
+    patterns longer than LONG_THRESHOLD (the JAX package's dispatch,
+    whatever the compute type); K7 for a ``compute_dtype="int16"`` call
+    whose shape and ``scheme`` ``int16_ok`` admits, at any band; K4 for
+    bands wider than K1-K3's register capacity (MAX_BAND cells);
     otherwise K2 with flags, K3 over packed windows, K1."""
-    if lp > LONG_THRESHOLD or 2 * band_w + 1 > MAX_BAND:
+    if lp > LONG_THRESHOLD:
+        return "K4"
+    if compute_dtype == "int16" and int16_ok(lp, band_w, scheme):
+        return "K7"
+    if 2 * band_w + 1 > MAX_BAND:
         return "K4"
     return "K2" if with_dirs else ("K3" if packed else "K1")
 
 
+def banded_score16(patterns, plens, texts, tlens, quals=None, *,
+                   scheme: GotohScheme, atype: AlignmentType, band_w: int):
+    """K7: the int16 masked banded Gotoh, score + sink over symbol
+    windows, for shapes ``int16_ok`` admits (raises ValueError on
+    others).  Inputs and outputs as ``banded_score``; the outputs follow
+    K7's own contract (``alignment.batched.banded_score_batch16``)."""
+    if not int16_ok(patterns.shape[1], band_w, scheme):
+        raise ValueError(
+            f"Lp={patterns.shape[1]}, band_w={band_w}: outside the int16 "
+            "guard (int16_ok); banded_score(compute_dtype='int16') takes K1"
+            " there")
+    if _on_cpu(patterns, plens, texts, tlens, quals):
+        return banded_score_batch16(patterns, plens, texts, tlens, quals,
+                                    scheme=scheme, atype=atype, band_w=band_w)
+    pats, qual, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens,
+                                                   quals)
+    tx = _launch.stage_texts(texts, pats.shape[0])
+    nb = pats.shape[0]
+    lib = _build.library()
+    words = lib.k7_scratch_words(nb, band_w)
+    scratch = (torch.empty(words, dtype=torch.int32, device=pats.device)
+               if words else None)
+    rc = lib.k7_banded_score16(
+        pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
+        tl.data_ptr(), nb, pats.shape[1], tx.shape[1], band_w,
+        *_launch.scheme_args(scheme, atype), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        _launch.stream(pats.device))
+    _build.check(lib, rc, "k7_banded_score16")
+    banded_score16.launches += 1
+    return _launch.result(out)
+
+
 def banded_score(patterns, plens, texts, tlens, quals=None, *,
-                 scheme: GotohScheme, atype: AlignmentType, band_w: int):
+                 scheme: GotohScheme, atype: AlignmentType, band_w: int,
+                 compute_dtype: str = "auto"):
     """K1: banded Gotoh score + sink over symbol windows.
 
     patterns (NB, Lp) symbols; texts (NB, Lt); plens, tlens (NB,);
     quals (NB, Lp) or None (= 40).  Returns dict of (NB,) int32
     ``score``, ``p_end``, ``t_end``.  Patterns beyond LONG_THRESHOLD
     rows go to K4 (``long_dp.banded_score_long``), and so do wide bands
-    on CUDA."""
-    kernel = route(patterns.shape[1], band_w, with_dirs=False)
-    if patterns.shape[1] > LONG_THRESHOLD:
+    on CUDA.  ``compute_dtype`` has the JAX package's meaning: "auto"
+    and "int32" are K1; "int16" is K7 (``banded_score16``) where
+    ``int16_ok`` admits the shape, K1 elsewhere."""
+    if compute_dtype not in ("auto", "int32", "int16"):
+        raise ValueError(f"compute_dtype {compute_dtype!r}: auto, int32 or "
+                         "int16")
+    lp = patterns.shape[1]
+    kernel = route(lp, band_w, with_dirs=False, compute_dtype=compute_dtype,
+                   scheme=scheme)
+    if lp > LONG_THRESHOLD:
         return long_dp.banded_score_long(patterns, plens, texts, tlens, quals,
                                          scheme=scheme, atype=atype,
                                          band_w=band_w)
+    if kernel == "K7":
+        return banded_score16(patterns, plens, texts, tlens, quals,
+                              scheme=scheme, atype=atype, band_w=band_w)
     if _on_cpu(patterns, plens, texts, tlens, quals):
         return banded_score_batch(patterns, plens, texts, tlens, quals,
                                   scheme=scheme, atype=atype, band_w=band_w)
@@ -230,6 +304,7 @@ KERNELS = {
     "K5": wavefront_dp.wavefront_score,
     "K5_dirs": wavefront_dp.wavefront_dirs,
     "K6": myers.myers,
+    "K7": banded_score16,
 }
 
 

@@ -1,12 +1,16 @@
-"""Single-end mapper CLI (nvBowtie equivalent): index + reads -> SAM.
+"""Mapper CLI (nvBowtie equivalent): index + reads -> SAM.
 
-Port of ``nvbio_tpu/tools/map_reads.py`` for the single-end path, with
-the reference's flags and defaults (Bowtie2 names: -x/-U/-S, -L seed
-length, -i interval, --mp/--rdg/--rfg/--ma/--np, --score-min) plus an
+Port of ``nvbio_tpu/tools/map_reads.py`` for single-end and paired-end
+reads, with the reference's flags and defaults (Bowtie2 names:
+-x/-U/-1/-2/-S, -L seed length, -i interval, --mp/--rdg/--rfg/--ma/--np,
+--score-min, --minins/--maxins, --fr/--rf/--ff, --no-mixed,
+--no-discordant, --dovetail, --no-contain, --no-overlap) plus an
 explicit ``--device``:
 
     python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -U reads.fq \\
         -S out.sam --device cuda
+    python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -1 r1.fq \\
+        -2 r2.fq -S out.sam --device cuda
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ def _parse(argv):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-x", "--index", required=True, help="index .npz")
     p.add_argument("-U", help="unpaired reads (FASTQ/FASTA/SAM, .gz ok)")
+    p.add_argument("-1", dest="m1", help="mate-1 FASTQ(.gz)")
+    p.add_argument("-2", dest="m2", help="mate-2 FASTQ(.gz)")
     p.add_argument("-S", "--sam", required=True, help="output SAM(.gz)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; never picked implicitly")
@@ -38,6 +44,34 @@ def _parse(argv):
     p.add_argument("--band", type=int, default=None,
                    help="extension band half-width (default 15; long "
                    "reads want more indel drift room, e.g. 63)")
+    p.add_argument("--minins", type=int, default=0)
+    p.add_argument("--maxins", type=int, default=500)
+    orient = p.add_mutually_exclusive_group()
+    orient.add_argument("--fr", dest="pe_orient", action="store_const",
+                        const="fr", help="mates: upstream forward / "
+                        "downstream reverse (default; bowtie2 --fr)")
+    orient.add_argument("--rf", dest="pe_orient", action="store_const",
+                        const="rf", help="mates: upstream reverse / "
+                        "downstream forward (bowtie2 --rf)")
+    orient.add_argument("--ff", dest="pe_orient", action="store_const",
+                        const="ff", help="mates: both same strand, "
+                        "mate 1 upstream (bowtie2 --ff)")
+    p.set_defaults(pe_orient="fr")
+    p.add_argument("--no-mixed", action="store_true",
+                   help="suppress single-end fallback for pairs that "
+                   "fail to align as pairs (bowtie2 --no-mixed)")
+    p.add_argument("--no-discordant", action="store_true",
+                   help="suppress discordant pair reports "
+                   "(bowtie2 --no-discordant)")
+    p.add_argument("--dovetail", action="store_true",
+                   help="mates that extend past each other can still "
+                   "be concordant (bowtie2 --dovetail)")
+    p.add_argument("--no-contain", action="store_true",
+                   help="a mate containing the other is not "
+                   "concordant (bowtie2 --no-contain)")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="overlapping mates are not concordant "
+                   "(bowtie2 --no-overlap)")
     p.add_argument("--ma", type=int, default=None,
                    help="match bonus (default 0 end-to-end)")
     p.add_argument("--mp", default="6,2", metavar="MX,MN",
@@ -65,8 +99,6 @@ def _parse(argv):
     p.add_argument("--stats", metavar="JSON",
                    help="write run counters and timings here")
     # reference flags outside this slice of the port
-    p.add_argument("-1", dest="m1", help=argparse.SUPPRESS)
-    p.add_argument("-2", dest="m2", help=argparse.SUPPRESS)
     p.add_argument("--local", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("-N", dest="seed_mm", type=int, default=0,
                    help=argparse.SUPPRESS)
@@ -76,7 +108,6 @@ def _parse(argv):
     p.add_argument("--xprof", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     unported = [
-        (args.m1 or args.m2, "-1/-2 (paired-end)"),
         (args.local, "--local"),
         (args.seed_mm, "-N 1"),
         (args.all_hits, "-a/--all"),
@@ -87,8 +118,8 @@ def _parse(argv):
         if used:
             p.error(f"{flag} is not ported to nvbio_tpu_torch yet; use "
                     "nvbio_tpu.tools.map_reads")
-    if not args.U:
-        p.error("need -U")
+    if not args.U and not (args.m1 and args.m2):
+        p.error("need -U or -1/-2")
     return p, args
 
 
@@ -119,6 +150,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from ..io.fastq import FastqBatchReader
     from ..io.sam import SamWriter
     from ..io.sequence import ReadBatchIterator, open_read_iter
 
@@ -127,6 +159,7 @@ def main(argv=None):
     from ..fmindex.build import build_kmer_lut
     from ..io.index_file import load_index
     from ..models.mapper import Mapper
+    from ..models.paired import PairedMapper
     from ..models.params import MapperParams, eval_simple_func
     from ..strings.string_set import pack_reads
 
@@ -154,7 +187,7 @@ def main(argv=None):
     except ValueError:
         ifn = _func(p, args.seed_interval, "-i")
         L0 = 100
-        for _, s0, _ in open_read_iter(args.U):
+        for _, s0, _ in open_read_iter(args.U or args.m1):
             L0 = len(s0)
             break
         seed_interval = max(1, int(eval_simple_func(*ifn, L0) + 0.5))
@@ -181,6 +214,14 @@ def main(argv=None):
         sa_sample=meta["sa_sample"],
         lut_k=lut_k,
         max_read_len=args.max_read_len,
+        minins=args.minins,
+        maxins=args.maxins,
+        pe_orient=args.pe_orient,
+        pe_dovetail=args.dovetail,
+        pe_no_contain=args.no_contain,
+        pe_no_overlap=args.no_overlap,
+        no_mixed=args.no_mixed,
+        no_discordant=args.no_discordant,
         **({"locate_frac": args.locate_frac}
            if args.locate_frac is not None else {}),
         **({"extend_frac": args.extend_frac}
@@ -192,7 +233,9 @@ def main(argv=None):
             [[0], np.cumsum(meta["contig_lens"][:-1])]).astype(np.int64),
         "lens": np.array(meta["contig_lens"], dtype=np.int64),
     }
-    mapper = Mapper(fm, ssa, genome, params=params, contigs=contigs, lut=lut)
+    paired = not args.U
+    cls = PairedMapper if paired else Mapper
+    mapper = cls(fm, ssa, genome, params=params, contigs=contigs, lut=lut)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_load = time.perf_counter() - t0
@@ -203,17 +246,38 @@ def main(argv=None):
                                               max_len=args.max_read_len)
             yield names, reads, lens, qmat
 
-    n_reads = n_aligned = 0
+    def packed_pe():
+        it1 = FastqBatchReader(args.m1, args.batch)
+        it2 = FastqBatchReader(args.m2, args.batch)
+        for (n1, s1, q1), (_, s2, q2) in zip(it1, it2):
+            r1, l1, qm1, _ = pack_reads(s1, q1, max_len=args.max_read_len)
+            r2, l2, qm2, _ = pack_reads(s2, q2, max_len=args.max_read_len)
+            yield n1, r1, l1, qm1, r2, l2, qm2
+
+    n_reads = n_aligned = n_pairs = n_proper = n_disc = 0
     t1 = time.perf_counter()
     with SamWriter(args.sam, meta["contig_names"], meta["contig_lens"],
                    cmdline=" ".join(argv if argv is not None
                                     else sys.argv[1:])) as writer:
-        for names, reads, lens, qmat, results in mapper.map_stream(packed()):
-            n_reads += len(results)
-            n_aligned += sum(r.aligned for r in results)
-            for rec in mapper.to_sam_records(names, reads, lens, qmat,
-                                             results):
-                writer.write(rec)
+        if paired:
+            for (names, r1, l1, qm1, r2, l2, qm2, res1, res2,
+                 info) in mapper.map_pairs_stream(packed_pe()):
+                n_pairs += len(info)
+                n_reads += len(res1) + len(res2)
+                n_aligned += sum(r.aligned for r in res1 + res2)
+                n_proper += sum(i["proper"] for i in info)
+                n_disc += sum(i["discordant"] for i in info)
+                for rec in mapper.to_sam_records_pe(
+                        names, r1, l1, qm1, r2, l2, qm2, res1, res2, info):
+                    writer.write(rec)
+        else:
+            for names, reads, lens, qmat, results in mapper.map_stream(
+                    packed()):
+                n_reads += len(results)
+                n_aligned += sum(r.aligned for r in results)
+                for rec in mapper.to_sam_records(names, reads, lens, qmat,
+                                                 results):
+                    writer.write(rec)
     t_map = time.perf_counter() - t1
     stats = {
         "device": str(device),
@@ -226,8 +290,18 @@ def main(argv=None):
         "overflowed": mapper.overflowed,
         "escalated": mapper.escalated,
     }
-    print(f"[map_reads] {n_reads} reads ({n_aligned} aligned) on {device} "
-          f"in {t_map:.2f}s after {t_load:.2f}s index load",
+    if paired:
+        stats.update({
+            "pairs": n_pairs,
+            "pairs_per_s": n_pairs / t_map if t_map > 0 else math.nan,
+            "proper_pairs": n_proper,
+            "discordant": n_disc,
+            "rescued": mapper.rescued,
+            "rescue_dropped": mapper.rescue_dropped,
+        })
+    print(f"[map_reads] {n_reads} reads ({n_aligned} aligned"
+          + (f"; {n_pairs} pairs, {n_proper} proper" if paired else "")
+          + f") on {device} in {t_map:.2f}s after {t_load:.2f}s index load",
           file=sys.stderr)
     if args.stats:
         with open(args.stats, "w") as f:

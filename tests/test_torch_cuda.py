@@ -2,7 +2,8 @@
 at their own bands, K4 for long patterns (Lp 2016) and for the wide
 bands (band_w 63) that route() sends it from K1-K3-shaped calls, K5
 (score and flags, shared-memory and scratch state), K6 (register and
-scratch words), the two-pass wide-band CIGAR and sw_benchmark.
+scratch words), K7 (register and scratch tiers), the two-pass wide-band
+CIGAR, sw_benchmark, and paired-end map_reads (CUDA SAM = CPU SAM).
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -177,7 +178,7 @@ def test_wide_band_short_calls_route_to_k4(cuda, atype):
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
     assert counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 0,
-                      "K5_dirs": 0, "K6": 0}
+                      "K5_dirs": 0, "K6": 0, "K7": 0}
     want = banded_score_batch(*cpu, **kw)
     want3 = banded_dp.banded_score_packed(
         cpu[0], cpu[1], gw, torch.from_numpy(ws), cpu[3], cpu[4], **kw)
@@ -258,6 +259,84 @@ def test_golden_se_sam_on_cuda(cuda, tmp_path):
            if not ln.startswith("@PG")]
     want = list(gzip.open(os.path.join(DATA, "golden_se.sam.gz"), "rt"))
     assert got == want
+
+
+@pytest.mark.parametrize("lp,band_w", [(32, 7), (64, 15), (128, 31),
+                                       (16, 120), (16, 700)])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k7_matches_plain(cuda, atype, lp, band_w):
+    """K7 (compute_dtype="int16") against its plain version: the three
+    register tiers (16, 32, 64 cells) and the scratch tier (241 and 1401
+    cells), an odd batch (the last thread's second alignment is empty),
+    N, zero-length and unreachable lanes."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch16
+
+    genome = np.random.default_rng(3).integers(0, 4, 20_000).astype(np.int8)
+    pats, plens, texts, tlens, quals, _ = _batch(lp + band_w, 301, lp,
+                                                 band_w, genome)
+    rng = np.random.default_rng(4)
+    plens[5:9], tlens[5:9] = lp, max(lp - band_w - 2, 0)  # no path
+    if atype == AlignmentType.GLOBAL:  # goal cells in and out of the band
+        tlens[9:] = np.clip(plens[9:] + rng.integers(
+            -2 * band_w, 2 * band_w + 1, len(plens) - 9), 0, tlens[9:])
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    assert banded_dp.int16_ok(lp, band_w, SCHEMES[atype])
+    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+    want = banded_score_batch16(*cpu, **kw)
+    banded_dp.reset_launch_counts()
+    got = banded_dp.banded_score(*[a.to(cuda) for a in cpu],
+                                 compute_dtype="int16", **kw)
+    torch.cuda.synchronize()
+    assert banded_dp.KERNELS["K7"].launches == 1
+    assert banded_dp.banded_score.launches == 0
+    assert (want["score"] > -(1 << 29)).float().mean() > 0.3
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_pe_sam_on_cuda_equals_cpu(cuda, tmp_path):
+    """Paired-end map_reads: --device cuda SAM = --device cpu SAM on 64
+    pairs, every fourth with mate 2's seeds broken so that rescue (K4 on
+    the card) places it; K2, K3 and K4 launched."""
+    import json
+
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_pairs
+
+    g = random_genome(150_000, seed=9)
+    write_fasta(str(tmp_path / "g.fa"), [("pe_ref", g)])
+    sim = simulate_pairs(g, 64, 100, insert_mean=280, insert_sd=25,
+                         error_rate=0.02, seed=10)
+    s2 = sim["seqs2"].copy()
+    for k in range(4, 100, 12):
+        s2[::4, k] = (s2[::4, k] + 1) % 4
+    write_fastq(str(tmp_path / "r1.fq"), [
+        (f"p{i}", sim["seqs1"][i].astype(np.uint8), sim["quals1"][i])
+        for i in range(64)])
+    write_fastq(str(tmp_path / "r2.fq"), [
+        (f"p{i}", s2[i].astype(np.uint8), sim["quals2"][i])
+        for i in range(64)])
+    build([str(tmp_path / "g.fa"), str(tmp_path / "g.npz")])
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        banded_dp.reset_launch_counts()
+        assert mapr(["-x", str(tmp_path / "g.npz"), "-1",
+                     str(tmp_path / "r1.fq"), "-2", str(tmp_path / "r2.fq"),
+                     "-S", str(tmp_path / f"{dev}.sam"), "--device", dev,
+                     "--batch", "64", "--stats",
+                     str(tmp_path / f"{dev}.json")]) == 0
+        if dev == "cuda":
+            counts = {k: f.launches for k, f in banded_dp.KERNELS.items()}
+            assert all(counts[k] > 0 for k in ("K2", "K3", "K4")), counts
+        sams[dev] = [ln for ln in open(tmp_path / f"{dev}.sam")
+                     if not ln.startswith("@PG")]
+    assert sams["cuda"] == sams["cpu"]
+    stats = json.load(open(tmp_path / "cuda.json"))
+    assert stats["rescued"] > 0 and stats["proper_pairs"] >= 56
 
 
 def _wavefront_inputs(seed, nb, lp, band_w):

@@ -2,7 +2,7 @@
 none) and keeps its own copies of the host code it needs: in a
 subprocess whose import system refuses ``jax`` and every ``nvbio_tpu``
 module, import every ``nvbio_tpu_torch`` module, build an index and map
-a tiny dataset on the CPU.  Also: the CLI's device and unported-flag
+a tiny single-end and a tiny paired-end dataset on the CPU.  Also: the CLI's device and unported-flag
 errors."""
 
 import os
@@ -55,6 +55,21 @@ GUARDED = textwrap.dedent("""
     recs = [l for l in open(f"{out}/o.sam") if not l.startswith("@")]
     print("records", len(recs),
           "aligned", sum(l.split("\\t")[1] != "4" for l in recs))
+
+    from nvbio_tpu_torch.utils.simulate import simulate_pairs
+    pe = simulate_pairs(g, 20, 80, insert_mean=250, insert_sd=20, seed=4)
+    for m in (1, 2):
+        write_fastq(f"{out}/p{m}.fq", [
+            (f"p{i}", pe[f"seqs{m}"][i].astype(np.uint8), pe[f"quals{m}"][i])
+            for i in range(20)])
+    assert mapr(["-x", f"{out}/g.npz", "-1", f"{out}/p1.fq", "-2",
+                 f"{out}/p2.fq", "-S", f"{out}/pe.sam", "--device", "cpu",
+                 "--batch", "32"]) == 0
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
+    recs = [l for l in open(f"{out}/pe.sam") if not l.startswith("@")]
+    print("pe_records", len(recs),
+          "proper", sum(int(l.split("\\t")[1]) & 2 > 0 for l in recs))
 """)
 
 
@@ -68,6 +83,8 @@ def test_port_runs_without_jax(tmp_path):
     assert int(lines[0].split()[1]) >= 20  # every module imported
     _, n_rec, _, n_al = lines[1].split()
     assert int(n_rec) == 40 and int(n_al) >= 36
+    _, n_rec, _, n_proper = lines[2].split()
+    assert int(n_rec) == 40 and int(n_proper) >= 36
 
 
 def _tiny_index(tmp_path):
@@ -101,7 +118,7 @@ def test_map_reads_cuda_raises_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["-N", "1"], ["--local"], ["-a"],
-                                   ["-1", "a.fq", "-2", "b.fq"],
+                                   ["-1", "a.fq", "-2", "b.fq", "--local"],
                                    ["--mesh", "on"], ["--xprof", "d"]],
                          ids=["N1", "local", "all", "paired", "mesh",
                               "xprof"])
