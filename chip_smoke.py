@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (nvbio_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase, as below
+    python3 chip_smoke.py --times ROOT      # the kernel phases (3, 4, 4b,
+                                            # 9, 10, 14) on ROOT's package
+    python3 chip_smoke.py --turns PARENT    # --times on PARENT and on this
+                                            # checkout in turns (parent,
+                                            # this, this, parent)
 
 Phases, each of which raises (exit code != 0, no result line) on any
 failure:
 
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
 2. the build: nvcc compiles the kernels from nvbio_tpu_torch/ops/csrc
-   (one process per source, started together);
+   (one process per source, started together); the registers, shared
+   bytes and spills of every instantiation of the sub-warp group kernel
+   (K2, K4 up to 128 cells) from ptxas;
 3. K1, K2, K3 against their plain PyTorch versions on the card, bit for
-   bit, at the mapper's shapes (NB = 32767 windows, 128-row patterns,
-   band_w = 15), for all three alignment types; K2's walk outputs too;
-   CUDA-event times of kernel and plain version; K1 at bench.py's
-   shape (2 097 152 x 100 bp x band 31);
+   bit, at the extension batch's shape (NB = 32767 windows, 128-row
+   patterns, band_w = 15), for all three alignment types; K2's walk
+   outputs too; CUDA-event times of kernel and plain version (K2 here
+   is its throughput row); K1 at bench.py's shape (2 097 152 x 100 bp x
+   band 31);
 4. K4 against its plain versions at the long-read path's shapes
    (score-only NB = 8192, directions NB = 1024; Lp = 2016, band_w = 63),
    for all three alignment types, flags and walks included; times;
+4b. K2 and K4 at the shapes their paths launch them: K2 over the 4096
+   winners of a short-read batch (128 rows, band_w 15) and K4 at the
+   paired-end rescue's chunked call (rescue_shape(): 14 336 x 128, Lt
+   199, band_w 63, checked against the real call in phase 16), all
+   three types against the plain versions (flags and walks too), times
+   with the calls queued and as issued (launch cost included), bounds,
+   and the block shape with the warps an SM the call keeps resident
+   (occupancy(): sm_90's rules over the ptxas registers and shared
+   bytes);
 5. the wide-band repair: K1-, K2- and K3-shaped calls at band_w = 63
    (Lp = 128, NB = 32767) launch K4 and equal the plain versions;
 6. the golden dataset through build_index + map_reads --device cuda:
@@ -68,19 +85,22 @@ failure:
    places them, map_reads -1/-2 --batch 4096 --device cuda with the
    counts reset just before: K2, K3 and K4 launched, pairs rescued,
    accuracy bars, pairs/s, proper and rescued shares, peak memory, a
-   per-stage breakdown of one batch, and the first 128 pairs mapped
-   under --device cuda and --device cpu to identical SAM lines.
+   per-stage breakdown of one batch (with the shapes of the rescue's DP
+   calls), and the first 128 pairs mapped under --device cuda and
+   --device cpu to identical SAM lines.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score and its flag entry
 points) as JSON, with the launches of the path that runs each (K2, K3:
 the short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark;
 K5 with flags: the pass-3 run; K7: the int16 opt-in phase), the time
-and plain time at the phase shapes, and the least time the card could
+and plain time at the phase shapes (K2 at the short-read path's 4096
+winners, phase 4b), and the least time the card could
 take for the same call (bound_ms: int32 operations over 132 SMs x 64
 lanes x the max SM clock, K7's int16 operations over twice that, or
 bytes over 3.35 TB/s, whichever is larger; the DP kernels' operations
-over the in-band cells the call needs, band_cells).  Bulk files go to
+over the in-band cells the call needs, band_cells, banded Gotoh's as the
+least instruction count, GOTOH_OPS).  Bulk files go to
 .chip_smoke_work/ (removed at the end), a copy of the numbers to
 result.json in OUT, with nvcc's ptxas report beside it.  Imports no JAX
 and nothing of nvbio_tpu: a finder refuses both.
@@ -104,6 +124,9 @@ N_READS = 100_000
 CPU_READS = 4096
 SEED = 20
 NB, LP, BAND_W = 32_767, 128, 15  # extension batch of the main path
+# the main path's K2 call: the 4096 winners of a short-read batch
+# (mapper.traceback_walk_windows), 100 bp reads bucketed to 128 rows
+K2_PATH_NB = 4_096
 DEV = "cuda"
 BENCH_NB, BENCH_LP = 2_097_152, 100  # bench.py:43-56
 # the long-read path: 1024-read chunks of 2 kb reads (bucketed to 2016)
@@ -122,12 +145,19 @@ K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W = 8_192, 16, 700
 N_PAIRS, PE_RESCUE_SHARE, PE_CPU = 50_000, 0.05, 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
-# int32 operations per cell, counted from the kernels' cell updates:
-# Gotoh (K1, K3, K4, K5): substitution 4 (two compares, two selects),
-# F 3, Hdiag 1, Hhat 1, E 3, H 1, masking and sink 2; flags add the H
-# source (2 compares, 2 selects), the E/F open bits (2 compares) and
-# packing (2 shifts/ors)
-GOTOH_OPS, GOTOH_FLAG_OPS = 15, 23
+# int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
+# least instruction count on sm_90a, where a byte-table lookup (prmt) and
+# each DPX form (max(a + b, c), max3) is one instruction: the
+# substitution 1 (prmt into the row's table), Hdiag 1, F 2 (H_up - (fo +
+# fe), then max(F_up - fe, that)), E 2 (the same over the row), Hhat 1,
+# H 1, masking and sink 2; flags add the H source (2 compares, 2
+# selects), the E/F open bits (2 compares) and packing (2 shifts/ors).
+# K7 does these on int16 pairs, two cells an instruction.
+GOTOH_OPS, GOTOH_FLAG_OPS = 10, 18
+# the yardstick of the earlier records (15, 23), where the substitution
+# took 4 (two compares, two selects), F and E 3 each: every row keeps
+# its share of it beside the new one, so shares compare across records
+YARD_OPS, YARD_FLAG_OPS = 15, 23
 # Myers (K6), per word of ceil(plen / 32) and text column < tlen: Peq
 # select 1, xv 1, add with carry 3, xh 2, ph 3, mh 1, shifts with carry
 # 6, VP 3, VN 1; per column: the end bits 2, the distance 2, the best
@@ -151,6 +181,9 @@ class _BlockJax:
 sys.meta_path.insert(0, _BlockJax())
 #: int32 operations per second of the card, set by phase_card
 INT32_PEAK = None
+#: group_ptxas of the build, set by phase_build (None for a cached build
+#: or a checkout whose builder does not report by source)
+GROUP_TIERS = None
 
 
 def bound(ops, nbytes, per_lane=1):
@@ -161,6 +194,17 @@ def bound(ops, nbytes, per_lane=1):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def gotoh_bound(cells, nbytes, dirs=False, per_lane=1):
+    """(bound_ms, bound_by, yard_bound_ms) of a banded Gotoh call over
+    ``cells`` needed cells: GOTOH_OPS (GOTOH_FLAG_OPS with flags) a cell,
+    and the same at the earlier records' yardstick."""
+    bms, by = bound(cells * (GOTOH_FLAG_OPS if dirs else GOTOH_OPS), nbytes,
+                    per_lane)
+    yard = bound(cells * (YARD_FLAG_OPS if dirs else YARD_OPS), nbytes,
+                 per_lane)[0]
+    return bms, by, yard
 
 
 def dp_bytes(*tensors, out_bytes=0):
@@ -206,17 +250,71 @@ def phase_build():
     _build.library()
     secs = time.perf_counter() - t0
     log(f"[build] kernels ready in {secs:.2f}s")
+    global GROUP_TIERS
+    tiers = None
     if _build.build_info is not None:
         os.makedirs(OUT, exist_ok=True)
         with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
             f.write(_build.build_info["ptxas"])
-    return secs
+        # (a parent checkout's builder of a --turns run has no such key)
+        tiers = group_ptxas(_build.build_info.get("ptxas_by_source", {}))
+        for t in tiers:
+            log(f"[build] group tier G {t['G']} x CPT {t['CPT']}, "
+                f"{['GLOBAL', 'SEMI_GLOBAL', 'LOCAL'][t['atype']]}"
+                f"{', packed' if t['packed'] else ''}"
+                f"{', flags' if t['dirs'] else ''}"
+                f"{'' if t['byte_table'] else ', generic scores'} "
+                f"({t['source']}): "
+                f"{t['registers']} registers, {t['smem']} B shared, spill "
+                f"stores {t['spill_stores']} B, loads {t['spill_loads']} B")
+    GROUP_TIERS = tiers
+    return secs, tiers
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean milliseconds per call, by CUDA events, after one warm-up."""
+def group_ptxas(by_source):
+    """Registers and spills of each instantiation of group_gotoh.cuh's
+    kernel from nvcc's ptxas report, by source: K2's in banded_gotoh.cu,
+    K4's (bands up to 128 cells) in long_gotoh.cu."""
+    import re
+
+    tiers = []
+    for src, text in sorted(by_source.items()):
+        cur = None
+        for ln in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                g = re.search(r"group_gotoh_kernelILi(\d+)ELi(\d+)ELi(\d)E"
+                              r"Lb([01])ELb([01])ELb([01])E", m.group(1))
+                cur = None if not g else {
+                    "source": src, "G": int(g[1]), "CPT": int(g[2]),
+                    "atype": int(g[3]), "packed": g[4] == "1",
+                    "dirs": g[5] == "1", "byte_table": g[6] == "1"}
+                if cur:
+                    tiers.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and cur is not None:
+                cur["registers"] = int(m[1])
+                m = re.search(r"(\d+) bytes smem", ln)
+                cur["smem"] = int(m[1]) if m else 0
+    return tiers
+
+
+def cuda_ms(torch, fn, reps, queued=True):
+    """Mean milliseconds per call, by CUDA events, after one warm-up.  A
+    ~10 ms sleep kernel ahead of the start event lets the host queue the
+    calls first, so a call shorter than its host-side launch cost is
+    timed on the device, back to back.  With ``queued=False`` the calls
+    start as the host issues them, so the time is the larger of the
+    kernel's and the host's cost a call (the launch included)."""
     fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -391,21 +489,23 @@ def phase_kernels(torch, np):
         cells = band_cells(torch, plens, tlens, BAND_W)
         flag_bytes = NB * LP * (2 * BAND_W + 1)  # K2 writes every row
         io = (pats, quals, plens, tlens)
-        for name, kern, plain, c, ops, nbytes in (
-                ("K1", k1, p1, cells, GOTOH_OPS,
+        for name, kern, plain, dirs, nbytes in (
+                ("K1", k1, p1, False,
                  dp_bytes(*io, texts, out_bytes=12 * NB)),
-                ("K3", k3, p3, cells, GOTOH_OPS,
+                ("K3", k3, p3, False,
                  dp_bytes(*io, gwords, ws, out_bytes=12 * NB)),
-                ("K2", k2, p2, cells, GOTOH_FLAG_OPS,
+                ("K2", k2, p2, True,
                  dp_bytes(*io, texts, out_bytes=12 * NB + flag_bytes))):
             ms, pms = cuda_ms(torch, kern, 10), cuda_ms(torch, plain, 2)
-            bms, by = bound(c * ops, nbytes)
+            bms, by, yard = gotoh_bound(cells, nbytes, dirs)
             out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                         "bound_by": by, "cells": c,
-                         "gcups": c / ms / 1e6, "plain_gcups": c / pms / 1e6}
+                         "bound_by": by, "yard_bound_ms": yard,
+                         "cells": cells, "gcups": cells / ms / 1e6,
+                         "plain_gcups": cells / pms / 1e6}
             log(f"[kernels] {name} SEMI_GLOBAL NB={NB} Lp={LP} "
-                f"band_w={BAND_W}: kernel {ms:.3f} ms ({c / ms / 1e6:.1f} "
-                f"GCUPS), plain {pms:.3f} ms ({c / pms / 1e6:.2f} GCUPS)")
+                f"band_w={BAND_W}: kernel {ms:.4f} ms ({cells / ms / 1e6:.1f}"
+                f" GCUPS), plain {pms:.3f} ms; bound {bms:.4f} ms ({by}), "
+                f"share {bms / ms:.3f} (yardstick {yard / ms:.3f})")
     for name in out:  # over all three alignment types
         out[name]["max_abs_err"] = worst[name]
     return out
@@ -474,22 +574,183 @@ def phase_k4(torch, np):
         cells_d = band_cells(torch, plens[:nd], tlens[:nd], LONG_W)
         ms, pms = cuda_ms(torch, k4, 10), cuda_ms(torch, p4, 2)
         dms, dpms = cuda_ms(torch, k4d, 10), cuda_ms(torch, p4d, 2)
-        bms, by = bound(cells * GOTOH_OPS,
-                        dp_bytes(*args, out_bytes=12 * LONG_NB))
-        dbms, dby = bound(cells_d * GOTOH_FLAG_OPS, dp_bytes(
-            *dargs, out_bytes=12 * nd + nd * LONG_LP * (2 * LONG_W + 1)))
+        bms, by, yard = gotoh_bound(
+            cells, dp_bytes(*args, out_bytes=12 * LONG_NB))
+        dbms, dby, dyard = gotoh_bound(cells_d, dp_bytes(
+            *dargs, out_bytes=12 * nd + nd * LONG_LP * (2 * LONG_W + 1)),
+            dirs=True)
         out = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-               "dirs_bound_ms": dbms, "dirs_bound_by": dby,
+               "yard_bound_ms": yard, "dirs_bound_ms": dbms,
+               "dirs_bound_by": dby, "dirs_yard_bound_ms": dyard,
                "gcups": cells / ms / 1e6,
                "plain_gcups": cells / pms / 1e6, "dirs_ms": dms,
                "dirs_plain_ms": dpms, "dirs_gcups": cells_d / dms / 1e6,
                "dirs_plain_gcups": cells_d / dpms / 1e6}
-        log(f"[k4] SEMI_GLOBAL score-only NB={LONG_NB}: kernel {ms:.3f} ms "
-            f"({out['gcups']:.1f} GCUPS), plain {pms:.1f} ms "
-            f"({out['plain_gcups']:.2f} GCUPS); with flags NB={nd}: kernel "
-            f"{dms:.3f} ms ({out['dirs_gcups']:.1f} GCUPS), plain "
-            f"{dpms:.1f} ms ({out['dirs_plain_gcups']:.2f} GCUPS)")
+        log(f"[k4] SEMI_GLOBAL score-only NB={LONG_NB}: kernel {ms:.4f} ms "
+            f"({out['gcups']:.1f} GCUPS), plain {pms:.1f} ms, bound "
+            f"{bms:.4f} ms ({by}), share {bms / ms:.3f} (yardstick "
+            f"{yard / ms:.3f}); with flags NB={nd}: kernel {dms:.4f} ms "
+            f"({out['dirs_gcups']:.1f} GCUPS), plain {dpms:.1f} ms, bound "
+            f"{dbms:.4f} ms ({dby}), share {dbms / dms:.3f} (yardstick "
+            f"{dyard / dms:.3f})")
     out["max_abs_err"] = worst
+    return out
+
+
+def rescue_shape():
+    """(NB, Lp, Lt, band_w) of the paired-end rescue's K4 call on a full
+    4096-pair batch of 100 bp mates (bucketed to 128 rows): paired.
+    pe_map_batch compacts the rescue to capR = 1024 lanes, and
+    _chunked_window_score runs them over C chunks of CW columns in one
+    banded_score call.  phase_pe reads the real call's shape and checks
+    it against this."""
+    from nvbio_tpu_torch.models.paired import _chunk_plan
+    from nvbio_tpu_torch.models.params import MapperParams
+
+    p = MapperParams()
+    lp = 128
+    w_c, cw, origins = _chunk_plan(lp, lp + 2 * (p.maxins + 2 * p.band_w), p)
+    return 1024 * len(origins), lp, cw, w_c
+
+
+def group_tier(band_w, dirs):
+    """(G lanes, CPT cells a lane) of group_gotoh.cuh's with_tier for a
+    band of 2 * band_w + 1 cells, None past its 128."""
+    band = 2 * band_w + 1
+    if band > 128:
+        return None
+    if band <= 16:
+        return 4, 4
+    if dirs:
+        return (8 if band <= 32 else 16 if band <= 64 else 32), 4
+    return (4 if band <= 32 else 8 if band <= 64 else 16), 8
+
+
+def occupancy(kernel, band_w, nb, dirs):
+    """The block shape of the group kernel a K2/K4 call of this band
+    launches (group_tier; 128 threads, 128 / G alignments a block), the
+    blocks an SM holds by the occupancy rules of sm_90 (64 warps, 32
+    blocks, 64 K registers allocated 256 a warp, 228 KiB of shared memory
+    with 1 KiB reserved a block) from the ptxas registers and shared
+    bytes of its SEMI_GLOBAL instantiation, and the warps an SM this
+    call's grid keeps resident.  None without a ptxas report of the
+    group kernel (a cached build, the parent tree of a --turns run)."""
+    tier = group_tier(band_w, dirs)
+    src = "banded_gotoh.cu" if kernel == "K2" else "long_gotoh.cu"
+    match = [t for t in GROUP_TIERS or () if tier and t["source"] == src
+             and (t["G"], t["CPT"]) == tier and t["atype"] == 1
+             and not t["packed"] and t["dirs"] == dirs and t["byte_table"]]
+    if not match:
+        return None
+    t, warps = match[0], 128 // 32
+    by_regs = 65536 // (warps * -(-t["registers"] * 32 // 256) * 256)
+    blocks = min(32, 64 // warps, by_regs, 233_472 // (t["smem"] + 1024))
+    per_block = 128 // tier[0]
+    grid = -(-nb // per_block)
+    resident = min(blocks, -(-grid // N_SMS))
+    return {"G": tier[0], "CPT": tier[1], "alignments_per_block": per_block,
+            "registers": t["registers"], "smem": t["smem"],
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * warps,
+            "grid": grid, "warps_per_sm_achieved": resident * warps}
+
+
+def phase_path_shapes(torch, np):
+    """K2 and K4 at the shapes their paths give them, all three types
+    against the plain versions, SEMI_GLOBAL timed by CUDA events with its
+    bound, queued and as the host issues the calls (launch_ms): K2 over
+    the 4096 winners of a short-read batch (128 rows, band_w 15) and K4
+    at the paired-end rescue's chunked call."""
+    from nvbio_tpu_torch.alignment.batched import (banded_directions_batch,
+                                                   banded_score_batch)
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+    from nvbio_tpu_torch.ops import banded_dp
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 10)
+    genome = rng.integers(0, 4, 8_000_000).astype(np.int8)
+    rnb, rlp, rlt, rw = rescue_shape()
+    rows = [("K2_path", "K2", True, dp_inputs(np, K2_PATH_NB, LP, BAND_W,
+                                               genome, rng), BAND_W, 10)]
+    res_in = list(long_inputs(np, rnb, rlp, rw, genome, rng))
+    res_in[2] = np.ascontiguousarray(res_in[2][:, :rlt])
+    res_in[3] = np.minimum(res_in[3], rlt)
+    res_in[6] = np.minimum(res_in[6], rlt)
+    rows.append(("K4_rescue", "K4", False, tuple(res_in), rw, 10))
+    keys = ("score", "p_end", "t_end")
+    out = {}
+    for name, kernel, dirs, arrays, w, reps in rows:
+        pats, plens, texts, win_tlens, quals, _, global_tlens = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays)
+        nb, lp = pats.shape
+        worst = 0
+        for atype in AlignmentType:
+            tlens = (global_tlens if atype == AlignmentType.GLOBAL
+                     else win_tlens)
+            kw = dict(scheme=GotohScheme(
+                match=2 if atype == AlignmentType.LOCAL else 0), atype=atype,
+                band_w=w)
+            args = (pats, plens, texts, tlens, quals)
+            if dirs:
+                def kern():
+                    return banded_dp.banded_directions(*args, **kw)
+
+                def plain():
+                    return banded_directions_batch(*args, **kw)
+            else:
+                def kern():
+                    return banded_dp.banded_score(*args, **kw)
+
+                def plain():
+                    return banded_score_batch(*args, **kw)
+            banded_dp.reset_launch_counts()
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if banded_dp.KERNELS[kernel].launches != 1:
+                fail(f"{name} ({nb} x {lp}, band_w {w}) did not launch "
+                     f"{kernel}: "
+                     f"{ {k: f.launches for k, f in banded_dp.KERNELS.items()} }")
+            if dirs:
+                (r, d), (wr, wd) = got, want
+                err = max(max_abs_err(torch, [r[k] for k in keys] + [d],
+                                      [wr[k] for k in keys] + [wd]),
+                          max_abs_err(torch, walk_outputs(torch, r, d, w),
+                                      walk_outputs(torch, wr, wd, w)))
+                want = wr
+            else:
+                err = max_abs_err(torch, [got[k] for k in keys],
+                                  [want[k] for k in keys])
+            n_ok = int((want["score"] > -(1 << 29)).sum())
+            if err or n_ok < nb // 3:
+                fail(f"{name} {atype.name}: max_abs_err {err}, {n_ok} of "
+                     f"{nb} lanes with a path")
+            worst = max(worst, err)
+            if atype != AlignmentType.SEMI_GLOBAL:
+                continue
+            cells = band_cells(torch, plens, tlens, w)
+            ms, pms = cuda_ms(torch, kern, reps), cuda_ms(torch, plain, 1)
+            launch_ms = cuda_ms(torch, kern, reps, queued=False)
+            flag_bytes = nb * lp * (2 * w + 1) if dirs else 0
+            bms, by, yard = gotoh_bound(
+                cells, dp_bytes(*args, out_bytes=12 * nb + flag_bytes), dirs)
+            occ = occupancy(kernel, w, nb, dirs)
+            out[name] = {"kernel": kernel, "shape": [nb, lp, texts.shape[1]],
+                         "band_w": w, "dirs": dirs, "ms": ms,
+                         "launch_ms": launch_ms, "plain_ms": pms,
+                         "bound_ms": bms, "bound_by": by,
+                         "yard_bound_ms": yard, "cells": cells,
+                         "gcups": cells / ms / 1e6, "occupancy": occ}
+        out[name]["max_abs_err"] = worst
+        o = out[name]
+        log(f"[path] {name}: {kernel}{' with flags' if dirs else ''} "
+            f"{nb} x {lp} (Lt {texts.shape[1]}), band_w {w}: all three types"
+            f" bit-identical to the plain version{' (walks too)' if dirs else ''};"
+            f" SEMI_GLOBAL {o['ms']:.4f} ms queued, {o['launch_ms']:.4f} ms as"
+            f" issued ({o['gcups']:.1f} GCUPS), bound {o['bound_ms']:.4f} ms "
+            f"({o['bound_by']}), share {o['bound_ms'] / o['ms']:.3f} "
+            f"(yardstick {o['yard_bound_ms'] / o['ms']:.3f}), plain "
+            f"{o['plain_ms']:.2f} ms; block shape {o['occupancy']}")
+        del pats, texts, quals
     return out
 
 
@@ -589,15 +850,16 @@ def phase_bench_k1(torch, np):
     cells = band_cells(torch, plens, tlens, BAND_W)
     ms = cuda_ms(torch, lambda: banded_dp.banded_score(*args, **kw), 5)
     pms = cuda_ms(torch, lambda: banded_score_batch(*args, **kw), 1)
-    bms, by = bound(cells * GOTOH_OPS,
-                    dp_bytes(*args, out_bytes=12 * BENCH_NB))
+    bms, by, yard = gotoh_bound(cells,
+                                dp_bytes(*args, out_bytes=12 * BENCH_NB))
     log(f"[bench] K1 {BENCH_NB} x {BENCH_LP} bp x band {2 * BAND_W + 1}: "
         f"{ms:.2f} ms = {cells / ms / 1e6:.1f} GCUPS (plain version "
         f"{pms:.1f} ms = {cells / pms / 1e6:.2f} GCUPS), bit-identical; "
-        f"bound {bms:.3f} ms ({by}), share {bms / ms:.3f}")
+        f"bound {bms:.3f} ms ({by}), share {bms / ms:.3f} (yardstick "
+        f"{yard / ms:.3f})")
     return {"ms": ms, "gcups": cells / ms / 1e6, "plain_ms": pms,
             "plain_gcups": cells / pms / 1e6, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "yard_bound_ms": yard}
 
 
 def phase_k7(torch, np):
@@ -675,18 +937,19 @@ def phase_k7(torch, np):
         t1b, t7b = cuda_ms(torch, k1, 10), cuda_ms(torch, k7, 10)
         ms, k1_ms = (t7a + t7b) / 2, (t1a + t1b) / 2
         pms = cuda_ms(torch, p7, 2)
-        bms, by = bound(cells * GOTOH_OPS,
-                        dp_bytes(*args, out_bytes=12 * nb), per_lane=2)
+        bms, by, yard = gotoh_bound(
+            cells, dp_bytes(*args, out_bytes=12 * nb), per_lane=2)
         out[name] = {"ms": ms, "ms_turns": [t7a, t7b], "int32_kernel": k32,
                      "int32_ms": k1_ms, "int32_ms_turns": [t1a, t1b],
                      "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                     "cells": cells, "gcups": cells / ms / 1e6,
+                     "yard_bound_ms": yard, "cells": cells,
+                     "gcups": cells / ms / 1e6,
                      "int32_gcups": cells / k1_ms / 1e6}
         log(f"[k7] SEMI_GLOBAL {name} NB={nb} Lp={lp} band_w={w}: K7 "
             f"{t7a:.3f} / {t7b:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), "
             f"{k32} {t1a:.3f} / {t1b:.3f} ms ({cells / k1_ms / 1e6:.1f} "
             f"GCUPS), plain {pms:.1f} ms; bound {bms:.3f} ms ({by}), share "
-            f"{bms / ms:.3f}")
+            f"{bms / ms:.3f} (yardstick {yard / ms:.3f})")
     row = out["row"]
     return dict(out, ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -780,11 +1043,11 @@ def phase_k5(torch, np):
             continue
         cells = band_cells(torch, plens, tlens, WIDE_W)
         ms, pms = cuda_ms(torch, k5, 5), cuda_ms(torch, p5, 1)
-        bms, by = bound(cells * GOTOH_OPS,
-                        dp_bytes(*args, out_bytes=12 * WIDE_NB))
+        bms, by, yard = gotoh_bound(cells,
+                                    dp_bytes(*args, out_bytes=12 * WIDE_NB))
         row_cells = WIDE_NB * WIDE_LP * (2 * WIDE_W + 1)
         out["K5"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                     "bound_by": by, "cells": cells,
+                     "bound_by": by, "yard_bound_ms": yard, "cells": cells,
                      "gcups": row_cells / ms / 1e6,
                      "plain_gcups": row_cells / pms / 1e6}
         log(f"[k5] SEMI_GLOBAL score-only NB={WIDE_NB}: kernel {ms:.3f} ms "
@@ -827,10 +1090,12 @@ def phase_k5(torch, np):
         cells_d = band_cells(torch, plens[:nd], tlens[:nd], WIDE_W)
         row_cells_d = nd * WIDE_LP * (2 * WIDE_W + 1)
         dms, dpms = cuda_ms(torch, k5d, 3), cuda_ms(torch, p5d, 1)
-        dbms, dby = bound(cells_d * GOTOH_FLAG_OPS,
-                          dp_bytes(*dargs, out_bytes=12 * nd + cells_d // 2))
+        dbms, dby, dyard = gotoh_bound(
+            cells_d, dp_bytes(*dargs, out_bytes=12 * nd + cells_d // 2),
+            dirs=True)
         out["K5_dirs"] = {"ms": dms, "plain_ms": dpms, "bound_ms": dbms,
-                          "bound_by": dby, "cells": cells_d,
+                          "bound_by": dby, "yard_bound_ms": dyard,
+                          "cells": cells_d,
                           "flag_bytes": dd.numel(),
                           "gcups": cells_d / dms / 1e6,
                           "plain_gcups": cells_d / dpms / 1e6,
@@ -1233,7 +1498,7 @@ def pe_stage_breakdown(torch, np, npz, r1_fq, r2_fq, batch=4096):
         r1, l1, qm1, _ = pack_reads(s1, q1, max_len=320)
         r2, l2, qm2, _ = pack_reads(s2, q2, max_len=320)
         batches.append((names, r1, l1, qm1, r2, l2, qm2))
-    t = {}
+    t, calls = {}, []
 
     def timed(name, fn):
         def run(*a, **k):
@@ -1247,6 +1512,8 @@ def pe_stage_breakdown(torch, np, npz, r1_fq, r2_fq, batch=4096):
 
     def events(name, fn):
         def run(*a, **k):
+            calls.append((a[0].shape[0], a[0].shape[1], a[2].shape[1],
+                          k["band_w"]))
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1291,7 +1558,8 @@ def pe_stage_breakdown(torch, np, npz, r1_fq, r2_fq, batch=4096):
         for name, fn in saved.items():
             setattr(P, name, fn)
     rows = rows[1:] or rows  # the first batch warms the allocator
-    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    return ({k: float(np.median([r[k] for r in rows])) for k in rows[0]},
+            sorted(set(calls)))
 
 
 def phase_pe(torch, np, g):
@@ -1379,13 +1647,19 @@ def phase_pe(torch, np, g):
         f"records under --device cuda ({sams[DEV][1]:.1f}s) and --device "
         f"cpu ({sams['cpu'][1]:.1f}s)")
 
-    stages = pe_stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/pe1.fq",
-                                f"{d}/pe2.fq")
+    stages, calls = pe_stage_breakdown(torch, np, f"{d}/g.npz",
+                                       f"{d}/pe1.fq", f"{d}/pe2.fq")
     log("[pe] one 4096-pair batch, ms per stage (synchronised, median of "
         "3): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    # the rescue's DP calls (NB, Lp, Lt, band_w): phase_path_shapes times
+    # K4 at rescue_shape(), which must be one of them
+    log(f"[pe] the rescue's banded_score calls (NB, Lp, Lt, band_w): {calls}")
+    if tuple(rescue_shape()) not in calls:
+        fail(f"the rescue's K4 calls {calls} do not include the shape the "
+             f"kernel rows time, {rescue_shape()}")
     return {"launches": launches, "peak_bytes": peak, "stats": stats,
             "proper": proper, "rescued": rescued, "aligned": frac_al,
-            "correct": frac_ok, "stages_ms": stages,
+            "correct": frac_ok, "stages_ms": stages, "rescue_calls": calls,
             "cuda_subset_s": sams[DEV][1], "cpu_subset_s": sams["cpu"][1]}
 
 
@@ -1624,11 +1898,125 @@ def phase_long_reads(torch, np, g):
             "cuda_subset_s": sams[DEV][1], "cpu_subset_s": sams["cpu"][1]}
 
 
+def kernel_phases(torch, np, result):
+    """The kernel phases (3, 4, 4b, 9, 10, K1 at bench.py's shape, 14)
+    into ``result``: every kernel against its plain version, timed."""
+    result["kernels"] = phase_kernels(torch, np)
+    result["kernels"]["K4"] = phase_k4(torch, np)
+    result["path_shapes"] = phase_path_shapes(torch, np)
+    result["kernels"].update(phase_k5(torch, np))
+    result["kernels"]["K6"] = phase_k6(torch, np)
+    torch.cuda.empty_cache()
+    result["bench_k1"] = phase_bench_k1(torch, np)
+    torch.cuda.empty_cache()
+    result["kernels"]["K7"] = phase_k7(torch, np)
+    torch.cuda.empty_cache()
+    result["rows"] = timed_rows(result)
+
+
+def timed_rows(result):
+    """Every timed kernel row of the kernel phases, by name: its ms, the
+    bound (GOTOH_OPS a cell for banded Gotoh), the bound at the earlier
+    records' yardstick, the time as issued where measured, and the group
+    kernel's block shape for the K2/K4 rows; logged one a line."""
+    k, ps = result["kernels"], result["path_shapes"]
+    k4 = k["K4"]
+    rows = {"K1": k["K1"], "K1_bench": result["bench_k1"], "K2": k["K2"],
+            "K2_path": ps["K2_path"], "K3": k["K3"], "K4": k4,
+            "K4_dirs": {"ms": k4["dirs_ms"], "bound_ms": k4["dirs_bound_ms"],
+                        "yard_bound_ms": k4["dirs_yard_bound_ms"]},
+            "K4_rescue": ps["K4_rescue"], "K5": k["K5"],
+            "K5_dirs": k["K5_dirs"], "K6": k["K6"],
+            "K6_32w": k["K6"]["shapes"][
+                f"{MYERS_SHAPES[1][0]}x{MYERS_SHAPES[1][1]}"],
+            "K7": k["K7"]["row"], "K7_wide": k["K7"]["wide"]}
+    occ = {"K2": occupancy("K2", BAND_W, NB, True),
+           "K4": occupancy("K4", LONG_W, LONG_NB, False),
+           "K4_dirs": occupancy("K4", LONG_W, LONG_DIRS_NB, True),
+           "K2_path": ps["K2_path"]["occupancy"],
+           "K4_rescue": ps["K4_rescue"]["occupancy"]}
+    out = {}
+    for name, r in rows.items():
+        o = out[name] = {"ms": r["ms"], "bound_ms": r["bound_ms"],
+                         "yard_bound_ms": r.get("yard_bound_ms"),
+                         "launch_ms": r.get("launch_ms"),
+                         "occupancy": occ.get(name)}
+        yard = (f", yardstick share {o['yard_bound_ms'] / o['ms']:.3f}"
+                if o["yard_bound_ms"] else "")
+        issued = (f", as issued {o['launch_ms']:.4f} ms"
+                  if o["launch_ms"] else "")
+        warps = (f", {o['occupancy']['warps_per_sm_achieved']} warps an SM"
+                 if o["occupancy"] else "")
+        log(f"[rows] {name}: {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms"
+            f", share {o['bound_ms'] / o['ms']:.3f}{yard}{issued}{warps}")
+    return out
+
+
+def times_main(root):
+    """--times: the card, the build and the kernel phases of the package
+    in ``root``; prints their rows as one JSON line."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    smi, _ = phase_card(torch)
+    torch.cuda.set_device(0)
+    result = {}
+    build_s, tiers = phase_build()
+    kernel_phases(torch, np, result)
+    log(json.dumps({"root": root, "nvidia_smi": smi, "build_s": build_s,
+                    "group_tiers": tiers, "rows": result["rows"]}))
+
+
+def turns_main(parent):
+    """--turns PARENT: --times on the parent checkout and on this one in
+    turns (parent, this, this, parent), one process each, on one card;
+    the rows to OUT/turns.json."""
+    runs = []
+    for root in (parent, ROOT, ROOT, parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--times", root],
+            capture_output=True, text=True, timeout=1200)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            sys.stdout.write(proc.stderr[-4000:])
+            fail(f"--times {root} exited with {proc.returncode}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "turns.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+    log(runs[0]["nvidia_smi"])
+    for name in runs[0]["rows"]:
+        rs = [r["rows"][name] for r in runs]
+        ms = [r["ms"] for r in rs]
+        b, yard = rs[1]["bound_ms"], rs[1]["yard_bound_ms"]
+        line = (f"[turns] {name}: parent {ms[0]:.4f} / {ms[3]:.4f} ms, this "
+                f"tree {ms[1]:.4f} / {ms[2]:.4f} ms; bound {b:.4f} ms, share"
+                f" parent {2 * b / (ms[0] + ms[3]):.3f}, this tree "
+                f"{2 * b / (ms[1] + ms[2]):.3f}")
+        if yard:
+            line += (f" (yardstick: {2 * yard / (ms[0] + ms[3]):.3f}, "
+                     f"{2 * yard / (ms[1] + ms[2]):.3f})")
+        if rs[0]["launch_ms"]:
+            line += (f"; as issued parent {rs[0]['launch_ms']:.4f} / "
+                     f"{rs[3]['launch_ms']:.4f}, this tree "
+                     f"{rs[1]['launch_ms']:.4f} / {rs[2]['launch_ms']:.4f} ms")
+        log(line)
+
+
 def main():
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "nvbio_tpu_torch")):
         fail("run from a checkout of the repository (nvbio_tpu_torch/ "
              "not found beside this script)")
+    args = sys.argv[1:]
+    if args[:1] in (["--times"], ["--turns"]) and len(args) == 2:
+        root = os.path.abspath(args[1])
+        if not os.path.isdir(os.path.join(root, "nvbio_tpu_torch")):
+            fail(f"{root} holds no nvbio_tpu_torch/")
+        return (times_main if args[0] == "--times" else turns_main)(root)
+    if args:
+        fail("usage: chip_smoke.py [--times ROOT | --turns PARENT_ROOT]")
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -1639,21 +2027,14 @@ def main():
               "cuda": torch.version.cuda, "max_sm_mhz": mhz,
               "int32_peak": INT32_PEAK}
     try:
-        result["build_s"] = phase_build()
-        result["kernels"] = phase_kernels(torch, np)
-        result["kernels"]["K4"] = phase_k4(torch, np)
-        result["kernels"].update(phase_k5(torch, np))
-        result["kernels"]["K6"] = phase_k6(torch, np)
-        torch.cuda.empty_cache()
+        result["build_s"], result["group_tiers"] = phase_build()
+        kernel_phases(torch, np, result)
         result["sw_benchmark"] = phase_sw_benchmark(torch)
         result["tool_shapes"] = phase_tool_shapes(torch, np)
         torch.cuda.empty_cache()
         result["pass3"] = phase_pass3(torch, np)
         torch.cuda.empty_cache()
         result["wide_band"] = phase_wide_band(torch, np)
-        result["bench_k1"] = phase_bench_k1(torch, np)
-        torch.cuda.empty_cache()
-        result["kernels"]["K7"] = phase_k7(torch, np)
         torch.cuda.empty_cache()
         result["golden_launches"] = phase_golden(torch)
         result["golden_pe_launches"] = phase_golden_pe(torch)
@@ -1698,6 +2079,10 @@ def main():
             ("K7", "banded_gotoh16.cu", "nvbio_tpu/ops/banded_dp.py:117",
              "int16 opt-in phase")):
         k = result["kernels"][name]
+        if name == "K2":  # timed over the winners, as the path calls it
+            k = dict(result["path_shapes"]["K2_path"],
+                     max_abs_err=max(k["max_abs_err"], result["path_shapes"]
+                                     ["K2_path"]["max_abs_err"]))
         n = paths[path][name]
         if n < 1:
             fail(f"the {path} never launched {name}: {paths[path]}")

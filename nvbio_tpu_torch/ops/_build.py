@@ -7,7 +7,7 @@ PyTorch headers, so a build takes seconds).  The library lands in
 ``_build/`` beside this file (listed in ``.gitignore``), named by a hash
 of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads the cached library (the hash covers the shared
-header ``csrc/gotoh_common.cuh`` too).  Nothing here runs at import
+headers ``csrc/*.cuh`` too).  Nothing here runs at import
 time.
 """
 
@@ -25,7 +25,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, "csrc", name)
            for name in ("banded_gotoh.cu", "banded_gotoh16.cu",
                         "long_gotoh.cu", "wavefront_gotoh.cu", "myers.cu")]
-HEADERS = [os.path.join(_DIR, "csrc", "gotoh_common.cuh")]
+HEADERS = [os.path.join(_DIR, "csrc", name)
+           for name in ("gotoh_common.cuh", "group_gotoh.cuh")]
 BUILD_DIR = os.path.join(_DIR, "_build")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -34,7 +35,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _lock = threading.Lock()
 _lib = None
 #: what the last build reported: seconds, the nvcc commands and their
-#: ptxas output (registers, spills per kernel); None when loaded cached
+#: ptxas output (registers, spills per kernel), also by source file; None
+#: when loaded cached
 build_info: dict | None = None
 
 _P = ctypes.c_void_p
@@ -135,7 +137,9 @@ def build() -> str:
     os.replace(tmp, path)
     build_info = {"seconds": time.perf_counter() - t0,
                   "cmds": [cmd for cmd, _ in procs] + [link],
-                  "ptxas": "\n".join(ptxas)}
+                  "ptxas": "\n".join(ptxas),
+                  "ptxas_by_source": {os.path.basename(src): err
+                                      for src, err in zip(SOURCES, ptxas)}}
     return path
 
 

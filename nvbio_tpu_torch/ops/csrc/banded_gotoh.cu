@@ -1,5 +1,4 @@
-// Banded Gotoh affine-gap DP for Hopper (sm_90a): one templated kernel,
-// three C entry points.
+// Banded Gotoh affine-gap DP for Hopper (sm_90a): K1, K3 and K2.
 //
 //   k1_banded_score          symbol windows, score + sink
 //       replaces nvbio_tpu/ops/banded_dp.py  banded_score_pallas
@@ -12,7 +11,7 @@
 //       replaces nvbio_tpu/ops/banded_dp.py  banded_directions_pallas
 //       (_make_kernel32 with dirs_ref)
 //
-// What it computes is nvbio_tpu_torch/alignment/batched.py cell for cell
+// What they compute is nvbio_tpu_torch/alignment/batched.py cell for cell
 // (the plain PyTorch versions, which mirror the JAX twin): invalid cells
 // (j < 0 or j > tlen) are masked to NEG_INF every row, so no sentinel
 // drift needs bounding, and the outputs follow the Pallas kernels'
@@ -20,24 +19,38 @@
 // ties, LOCAL earliest-row-then-lowest-k sink, zero-length patterns,
 // t_end = max(p_end + k - w, 0)).
 //
-// Design: NVBIO's own banded_alignment_score, one thread per alignment.
-// The TPU kernel put the batch across VPU lanes and the band across
-// sublanes, and solved the in-row E recurrence with a Kogge-Stone scan;
-// here a thread owns one alignment, holds the band's H, F and the text
-// symbols under it in registers (CAP is a compile-time band capacity, so
-// every band loop unrolls and the arrays never leave the register file),
-// and runs E sequentially along the band:
+// K1 and K3: NVBIO's own banded_alignment_score, one thread per
+// alignment.  The TPU kernel put the batch across VPU lanes and the band
+// across sublanes, and solved the in-row E recurrence with a Kogge-Stone
+// scan; here a thread owns one alignment, holds the band's H, F and the
+// text symbols under it in registers (CAP is a compile-time band
+// capacity, so every band loop unrolls and the arrays never leave the
+// register file), and runs E sequentially along the band:
 //     E[k] = max(Hhat[k-1] - (eo + ee), E[k-1] - ee).
 // The text window slides one symbol per row through the register array.
+// What bounds them on the H100: integer ALU issue and the row-to-row
+// dependence (about 15 int32 ops per cell in this compare-and-select
+// form, against a least count of 10, chip_smoke.py GOTOH_OPS; no
+// tensor-core work).  Loads
+// are per thread and not coalesced (a warp reads 32 different pattern
+// rows), which the L1 absorbs only in part.
 //
-// What bounds it on the H100: integer ALU issue and the row-to-row
-// dependence (about 15 int32 ops per cell, no tensor-core work); K2 also
-// stores 1 byte per cell.  Loads are per thread and not coalesced (a warp
-// reads 32 different pattern rows), which the L1 absorbs only in part.
-// Coalesced layouts, warp-per-alignment, DPX __vimax3_s32 and 16-bit
-// lanes are left for later work.
+// K2: the sub-warp band-parallel kernel of group_gotoh.cuh (shared with
+// K4's tiers up to 128 cells), for bands up to 64 cells.  What bounded
+// K2 in the one-thread design: each thread stored its 2w+1 flag bytes a
+// row one byte at a time into its own alignment's rows, so a warp store
+// touched 32 sectors for 32 useful bytes; pattern and quality loads sat
+// uncoalesced on the row chain; and the traceback call's 4 096 winners
+// made 32 blocks, so 100 of the 132 SMs stood idle.  Now G = 4 / 8 / 16
+// lanes an alignment (bands of 16 / 32 / 64 cells) put 2-8 alignments in
+// a warp and 8-32 in a block, over every SM; a row's flag bytes come from
+// neighbouring lanes and leave in 16-byte stores of whole row runs; what
+// bounds it is the integer issue of the flag cell (a least count of 18
+// instructions, chip_smoke.py GOTOH_FLAG_OPS) plus the group's per-row
+// shuffles and scan (see group_gotoh.cuh).
 
 #include "gotoh_common.cuh"
+#include "group_gotoh.cuh"
 
 namespace {
 
@@ -60,7 +73,7 @@ __device__ __forceinline__ int text_symbol(const Args& a, int b, int m,
   return a.texts[static_cast<int64_t>(b) * a.lt + m];
 }
 
-template <int CAP, int ATYPE, bool PACKED, bool DIRS>
+template <int CAP, int ATYPE, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 banded_gotoh_kernel(const Args a) {
   const int b = blockIdx.x * THREADS + threadIdx.x;
@@ -92,9 +105,8 @@ banded_gotoh_kernel(const Args a) {
   int best = ATYPE == LOCAL ? 0 : NEG_INF;
   int best_i = 0, best_k = w;
   const int k_goal = tlen - plen + w;
-  // score-only kernels stop at the pattern's end; the flag kernel fills
-  // every row, like the plain version
-  const int n_rows = DIRS ? a.lp : min(plen, a.lp);
+  // rows past the pattern's end change no score
+  const int n_rows = min(plen, a.lp);
   for (int i0 = 0; i0 < n_rows; ++i0) {
     const int p = pat[i0];
     const int q = min(static_cast<int>(qual[i0]), 40);
@@ -104,9 +116,6 @@ banded_gotoh_kernel(const Args a) {
     int hhat_m_prev = NEG_INF;  // Hhat (masked) of cell k - 1
     int e_prev = NEG_INF;       // E (unmasked) of cell k - 1
     int row_best = NEG_INF - 1, row_k = 0, h_goal = NEG_INF;
-    uint8_t* drow = DIRS ? a.dirs + (static_cast<int64_t>(b) * a.lp + i0)
-                                        * band
-                         : nullptr;
 #pragma unroll
     for (int k = 0; k < CAP; ++k) {
       const int j = j_base + k;
@@ -129,18 +138,8 @@ banded_gotoh_kernel(const Args a) {
       int h_new = max(hhat, e);
       if (ATYPE == LOCAL) h_new = max(h_new, 0);
       h_new = valid ? h_new : NEG_INF;
-      const int f_m = valid ? f_new : NEG_INF;
-      const int e_m = valid ? e : NEG_INF;
       H[k] = h_new;
-      F[k] = f_m;
-      if (DIRS && k < band) {
-        int flag = h_new == h_diag ? 0 : (h_new == e_m ? 1 : 2);
-        if (ATYPE == LOCAL && h_new <= 0) flag = 3;
-        if (!valid) flag = 3;
-        flag |= (e_m == a_open) << 2;
-        flag |= (f_m == f_open) << 3;
-        drow[k] = static_cast<uint8_t>(flag);
-      }
+      F[k] = valid ? f_new : NEG_INF;
       if (k < band) {
         if (h_new > row_best) {  // strict: the lowest k wins ties
           row_best = h_new;
@@ -183,20 +182,20 @@ banded_gotoh_kernel(const Args a) {
   a.out[2 * a.nb + b] = max(best_i + best_k - w, 0);
 }
 
-template <int CAP, bool PACKED, bool DIRS>
+template <int CAP, bool PACKED>
 cudaError_t launch_atype(const Args& a, int atype, cudaStream_t stream) {
   const dim3 grid((a.nb + THREADS - 1) / THREADS), block(THREADS);
   switch (atype) {
     case GLOBAL:
-      banded_gotoh_kernel<CAP, GLOBAL, PACKED, DIRS>
+      banded_gotoh_kernel<CAP, GLOBAL, PACKED>
           <<<grid, block, 0, stream>>>(a);
       break;
     case SEMI_GLOBAL:
-      banded_gotoh_kernel<CAP, SEMI_GLOBAL, PACKED, DIRS>
+      banded_gotoh_kernel<CAP, SEMI_GLOBAL, PACKED>
           <<<grid, block, 0, stream>>>(a);
       break;
     case LOCAL:
-      banded_gotoh_kernel<CAP, LOCAL, PACKED, DIRS>
+      banded_gotoh_kernel<CAP, LOCAL, PACKED>
           <<<grid, block, 0, stream>>>(a);
       break;
     default:
@@ -205,14 +204,14 @@ cudaError_t launch_atype(const Args& a, int atype, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool PACKED, bool DIRS>
+template <bool PACKED>
 cudaError_t launch(const Args& a, int atype, cudaStream_t stream) {
   if (a.nb == 0) return cudaSuccess;
   const int band = 2 * a.band_w + 1;
   // the wrapper rejects bands wider than the widest instantiation
-  if (band <= 16) return launch_atype<16, PACKED, DIRS>(a, atype, stream);
-  if (band <= 32) return launch_atype<32, PACKED, DIRS>(a, atype, stream);
-  if (band <= 64) return launch_atype<64, PACKED, DIRS>(a, atype, stream);
+  if (band <= 16) return launch_atype<16, PACKED>(a, atype, stream);
+  if (band <= 32) return launch_atype<32, PACKED>(a, atype, stream);
+  if (band <= 64) return launch_atype<64, PACKED>(a, atype, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -231,7 +230,7 @@ int k1_banded_score(const void* pats, const void* quals, const void* plens,
                      mm_max, n_penalty, eo, ee, fo, fe, out);
   a.texts = static_cast<const int8_t*>(texts);
   a.lt = lt;
-  return static_cast<int>(launch<false, false>(
+  return static_cast<int>(launch<false>(
       a, atype, static_cast<cudaStream_t>(stream)));
 }
 
@@ -247,7 +246,7 @@ int k3_banded_score_packed(const void* pats, const void* quals,
   a.gwords = static_cast<const int32_t*>(gwords);
   a.n_words = n_words;
   a.win_start = static_cast<const int64_t*>(win_start);
-  return static_cast<int>(launch<true, false>(
+  return static_cast<int>(launch<true>(
       a, atype, static_cast<cudaStream_t>(stream)));
 }
 
@@ -262,7 +261,9 @@ int k2_banded_directions(const void* pats, const void* quals,
   a.texts = static_cast<const int8_t*>(texts);
   a.lt = lt;
   a.dirs = static_cast<uint8_t*>(dirs);
-  return static_cast<int>(launch<false, true>(
+  // the wrapper rejects bands wider than 64 cells
+  if (2 * band_w + 1 > 64) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(grp::launch<false, true>(
       a, atype, static_cast<cudaStream_t>(stream)));
 }
 

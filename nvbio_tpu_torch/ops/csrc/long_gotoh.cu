@@ -1,5 +1,14 @@
 // Band-parallel banded Gotoh affine-gap DP for Hopper (sm_90a): K4, the
 // long-pattern kernel, and the wide-band kernel for K1/K2/K3-shaped calls.
+// Two designs serve it, by band (2w+1 cells):
+//   - up to 128 cells (--band 63 long reads, the paired-end rescue's
+//     band-63 chunks, every K4 call of map_reads): the sub-warp group
+//     kernel of group_gotoh.cuh, a group of G lanes an alignment and
+//     several alignments a 128-thread block (its with_tier gives G and
+//     the cells a lane: 32 x 4 for band-63 flags, 16 x 8 for band-63
+//     scores);
+//   - 129 to 2048 cells (score-only bands to 971, flags to 815): the
+//     block-per-alignment kernel below, 64-512 threads x 4 cells.
 //
 //   k4_long_score           symbol windows, score + sink
 //   k4_long_score_packed    windows of the 2-bit packed genome, score + sink
@@ -19,14 +28,15 @@
 // LOCAL earliest row then lowest k, zero-length patterns,
 // t_end = max(p_end + k - w, 0); flag ties diag > E > F).
 //
-// Design.  The TPU kernel put 128-256 alignments across lanes and the
-// band across sublanes, ran 512-row pattern blocks on a sequential grid
-// axis with (H, F, sink) carried in VMEM scratch, and solved the in-row E
-// recurrence with a Kogge-Stone max-scan over the band.  Blocks on the
+// Design of the wide tiers.  The TPU kernel put 128-256 alignments
+// across lanes and the band across sublanes, ran 512-row pattern blocks
+// on a sequential grid axis with (H, F, sink) carried in VMEM scratch,
+// and solved the in-row E recurrence with a Kogge-Stone max-scan over
+// the band.  Blocks on the
 // H100 run in no order, so here one block owns one alignment and runs
 // every row in a loop, with the band across its threads: thread t holds
 // cells [t*CPT, t*CPT + CPT) of H and F in registers (NT x CPT is a
-// compile-time band capacity, 32 to 2048 cells).  Per row:
+// compile-time band capacity, 256 to 2048 cells).  Per row:
 //   - F (vertical) reads the previous row's H, F at k+1: the next
 //     thread's first cell by __shfl_down_sync, through shared memory at
 //     warp edges.  The Hhat of cell t*CPT - 1, which the first cell's E
@@ -43,50 +53,39 @@
 //   - the sink: SEMI_GLOBAL and GLOBAL read row plen once; LOCAL keeps a
 //     per-cell running max and its row, reduced over the block at the end.
 //
-// What bounds it on the H100: the row-to-row dependence.  Each row costs
-// about 15 int32 ops per cell, one neighbour exchange and one block-wide
-// scan (two __syncthreads for blocks of several warps, none for one
-// warp), so a block runs rows back to back at the latency of that chain;
-// the parallelism comes from many alignments (blocks) in flight on each
-// SM.  wgmma, TMA and DPX (__vimax3_s32) are left for later work.
+// What bounds it on the H100.  Up to 128 cells, the band-parallel
+// one-warp blocks of the first design were held back by three things:
+// Hopper keeps at most 32 blocks an SM, so at most 32 of its 64 warps
+// ran (the 1 024-lane flag call had ~8 an SM); the row-to-row chain held
+// global loads (the row's pattern symbol and quality, five text bytes a
+// thread with bounds checks) besides three shuffles and a 5-step
+// max-scan; and each thread stored its flags as 4 byte stores a row.
+// group_gotoh.cuh answers each (several alignments a block, rows staged
+// in shared memory a chunk ahead, text slid through registers, DPX
+// forms, flag rows written as 16-byte runs); what is left is integer
+// issue, a score cell's least count of 10 instructions (18 with flags;
+// the table lookup and each DPX form one, chip_smoke.py GOTOH_OPS) plus
+// the group's per-row shuffles and scan, and on small calls the chain's
+// latency.  The wide
+// tiers keep the first design: each row costs about 15 int32 ops per
+// cell, one neighbour exchange and one block-wide scan (two
+// __syncthreads), so a block runs rows back to back at the latency of
+// that chain, with one alignment a block.
 
 #include <limits.h>
 
 #include "gotoh_common.cuh"
+#include "group_gotoh.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-
-// window-relative text symbol m of alignment b; PAD outside the window
-// (those cells are masked, except m = -1 under j = 0, which scores as N
-// like the plain version's PAD padding)
-template <bool PACKED>
-__device__ __forceinline__ int text_symbol(const Args& a, int b, int64_t ws,
-                                           int m, int tlen) {
-  if (PACKED) {
-    if (m < 0 || m >= tlen) return PAD_SYMBOL;
-    const int64_t idx = ws + m;
-    const int64_t w = idx >> 4;
-    if (w >= a.n_words) return PAD_SYMBOL;
-    const uint32_t word = static_cast<uint32_t>(__ldg(a.gwords + w));
-    return static_cast<int>((word >> (2 * (idx & 15))) & 3u);
-  }
-  if (m < 0 || m >= a.lt) return PAD_SYMBOL;
-  return __ldg(a.texts + static_cast<int64_t>(b) * a.lt + m);
-}
+using grp::Best;
+using grp::FULL;
+using grp::better;
+using grp::text_symbol;
 
 __device__ __forceinline__ int subst(int p, int t, int mm, const Scheme& sc) {
   return (p >= 4 || t >= 4) ? -sc.n_penalty : (p == t ? sc.match : -mm);
-}
-
-// a sink candidate: higher score first, then lower row, then lower k
-struct Best {
-  int v, r, k;
-};
-
-__device__ __forceinline__ bool better(const Best& x, const Best& y) {
-  return x.v > y.v || (x.v == y.v && (x.r < y.r || (x.r == y.r && x.k < y.k)));
 }
 
 __device__ __forceinline__ Best warp_best(Best x) {
@@ -103,14 +102,12 @@ __device__ __forceinline__ Best warp_best(Best x) {
 template <int NW>
 __device__ __forceinline__ Best block_best(Best x, Best* sh) {
   x = warp_best(x);
-  if (NW > 1) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) sh[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      x = lane < NW ? sh[lane] : Best{INT_MIN, INT_MAX, INT_MAX};
-      x = warp_best(x);
-    }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    x = lane < NW ? sh[lane] : Best{INT_MIN, INT_MAX, INT_MAX};
+    x = warp_best(x);
   }
   return x;
 }
@@ -118,6 +115,7 @@ __device__ __forceinline__ Best block_best(Best x, Best* sh) {
 template <int NT, int CPT, int ATYPE, bool PACKED, bool DIRS>
 __global__ void __launch_bounds__(NT) long_gotoh_kernel(const Args a) {
   constexpr int NW = NT / 32;
+  static_assert(NW > 1, "bands up to 128 cells run group_gotoh.cuh");
   __shared__ int sh_first_h[NW], sh_first_f[NW], sh_last_h[NW], sh_tot[NW];
   __shared__ Best sh_best[NW];
 
@@ -169,22 +167,17 @@ __global__ void __launch_bounds__(NT) long_gotoh_kernel(const Args a) {
     int nxt_h = __shfl_down_sync(FULL, H[0], 1);
     int nxt_f = __shfl_down_sync(FULL, F[0], 1);
     int prv_h = __shfl_up_sync(FULL, H[CPT - 1], 1);
-    if (NW > 1) {
-      if (lane == 0) {
-        sh_first_h[warp] = H[0];
-        sh_first_f[warp] = F[0];
-      }
-      if (lane == 31) sh_last_h[warp] = H[CPT - 1];
-      __syncthreads();
-      if (lane == 31) {
-        nxt_h = warp + 1 < NW ? sh_first_h[warp + 1] : NEG_INF;
-        nxt_f = warp + 1 < NW ? sh_first_f[warp + 1] : NEG_INF;
-      }
-      if (lane == 0) prv_h = warp > 0 ? sh_last_h[warp - 1] : NEG_INF;
-    } else {
-      if (lane == 31) nxt_h = nxt_f = NEG_INF;
-      if (lane == 0) prv_h = NEG_INF;
+    if (lane == 0) {
+      sh_first_h[warp] = H[0];
+      sh_first_f[warp] = F[0];
     }
+    if (lane == 31) sh_last_h[warp] = H[CPT - 1];
+    __syncthreads();
+    if (lane == 31) {
+      nxt_h = warp + 1 < NW ? sh_first_h[warp + 1] : NEG_INF;
+      nxt_f = warp + 1 < NW ? sh_first_f[warp + 1] : NEG_INF;
+    }
+    if (lane == 0) prv_h = warp > 0 ? sh_last_h[warp - 1] : NEG_INF;
 
     // masked Hhat of cell k0 - 1, recomputed from the previous row
     int hm_prev = NEG_INF;
@@ -231,11 +224,9 @@ __global__ void __launch_bounds__(NT) long_gotoh_kernel(const Args a) {
     }
     int excl = __shfl_up_sync(FULL, incl, 1);
     if (lane == 0) excl = INT_MIN;
-    if (NW > 1) {
-      if (lane == 31) sh_tot[warp] = incl;
-      __syncthreads();
-      for (int v = 0; v < warp; ++v) excl = max(excl, sh_tot[v]);
-    }
+    if (lane == 31) sh_tot[warp] = incl;
+    __syncthreads();
+    for (int v = 0; v < warp; ++v) excl = max(excl, sh_tot[v]);
 
     uint8_t* drow = DIRS ? a.dirs + (static_cast<int64_t>(b) * a.lp + i0) * band
                          : nullptr;
@@ -336,11 +327,11 @@ template <bool PACKED, bool DIRS>
 cudaError_t launch(const Args& a, int atype, cudaStream_t stream) {
   if (a.nb == 0) return cudaSuccess;
   const int band = 2 * a.band_w + 1;
-  // the smallest (threads x cells) shape that holds the band; the
-  // wrapper rejects bands wider than the widest
-  if (band <= 32) return launch_atype<32, 1, PACKED, DIRS>(a, atype, stream);
-  if (band <= 64) return launch_atype<32, 2, PACKED, DIRS>(a, atype, stream);
-  if (band <= 128) return launch_atype<32, 4, PACKED, DIRS>(a, atype, stream);
+  // up to 128 cells the sub-warp groups; above, the smallest (threads x
+  // cells) shape that holds the band; the wrapper rejects bands wider
+  // than the widest
+  if (band <= grp::MAX_CELLS)
+    return grp::launch<PACKED, DIRS>(a, atype, stream);
   if (band <= 256) return launch_atype<64, 4, PACKED, DIRS>(a, atype, stream);
   if (band <= 512) return launch_atype<128, 4, PACKED, DIRS>(a, atype, stream);
   if (band <= 1024) return launch_atype<256, 4, PACKED, DIRS>(a, atype, stream);

@@ -3,8 +3,11 @@
 Port of ``nvbio_tpu/ops/long_dp.py`` (``banded_score_long_pallas``
 ``:323``, ``banded_directions_long_pallas`` ``:354``, both through
 ``_long_call``).  The kernel is ``csrc/long_gotoh.cu`` (built by
-``_build.py`` at first use): one block per alignment with the band across
-its threads, every row in a loop inside the block.
+``_build.py`` at first use), the band across threads and every row in a
+loop: for bands up to 128 cells (every K4 call of ``map_reads``) a
+sub-warp group of lanes an alignment (the tier ``with_tier`` picks by band
+and flags), several alignments a block (``csrc/group_gotoh.cuh``, shared
+with K2); wider bands one block an alignment.
 
 K4's plain versions are ``alignment/batched.py`` ``banded_score_batch``
 and ``banded_directions_batch``: the TPU kernel is bit-identical to them

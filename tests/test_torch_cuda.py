@@ -1,6 +1,8 @@
 """CUDA kernels against their plain PyTorch versions, on the card: K1-K3
-at their own bands, K4 for long patterns (Lp 2016) and for the wide
-bands (band_w 63) that route() sends it from K1-K3-shaped calls, K5
+at their own bands (every tier edge of K2's sub-warp groups), K4 for
+long patterns (Lp 2016-2017, its group tiers and the block-per-alignment
+tiers above 128 cells) and for the wide bands (band_w 32, 63) that
+route() sends it from K1-K3-shaped calls, K5
 (score and flags, shared-memory and scratch state), K6 (register and
 scratch words), K7 (register and scratch tiers), the two-pass wide-band
 CIGAR, sw_benchmark, and paired-end map_reads (CUDA SAM = CPU SAM).
@@ -49,7 +51,7 @@ def _batch(seed, nb, lp, band_w, genome):
     n = len(genome)
     lt = lp + 2 * band_w
     ws = rng.integers(0, n - 4, nb)
-    ws[:3] = [0, n - 1, n - lp]
+    ws[:3] = [0, n - 1, n - lp][:nb]
     gpad = np.concatenate([genome, np.full(lt, 7, np.int8)])
     texts = gpad[ws[:, None] + np.arange(lt)]
     pats = texts[:, band_w:band_w + lp].copy()
@@ -57,42 +59,67 @@ def _batch(seed, nb, lp, band_w, genome):
     mut = rng.random(pats.shape) < 0.05
     pats[mut] = rng.integers(0, 5, int(mut.sum()))
     plens = rng.integers(lp // 2, lp + 1, nb).astype(np.int32)
-    plens[3] = 0
     tlens = np.clip(n - ws, 0, lt).astype(np.int32)
+    plens[3:5], tlens[5:6] = (0, lp)[:len(plens[3:5])], 0  # edge lanes
     quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
     return pats, plens, texts, tlens, quals, ws
 
 
-@pytest.mark.parametrize("band_w", [7, 15, 31])
+#: scores past a signed byte: the group kernels' generic substitution
+#: path (no byte table)
+BIG = {AlignmentType.GLOBAL: GotohScheme(mismatch_min=150, mismatch_max=300),
+       AlignmentType.SEMI_GLOBAL: GotohScheme(n_penalty=200),
+       AlignmentType.LOCAL: GotohScheme(match=130)}
+
+
+@pytest.mark.parametrize("nb,lp,big", [(301, 40, False), (1, 129, False),
+                                       (64, 40, True)],
+                         ids=["nb301_lp40", "nb1_lp129", "nb64_big_scores"])
+@pytest.mark.parametrize("band_w", [0, 1, 7, 8, 15, 16, 31])
 @pytest.mark.parametrize("atype", list(AlignmentType),
                          ids=[a.name.lower() for a in AlignmentType])
-def test_kernels_match_plain(cuda, atype, band_w):
+def test_kernels_match_plain(cuda, atype, band_w, nb, lp, big):
+    """K1, K3 and K2 (flags and run-jump walks) at every edge of K2's
+    group tiers (16, 32, 64 cells), an odd batch and a single lane, Lp
+    off the staging chunk; zero-length and full-length patterns, a
+    zero-length window, N; scores that fit the byte table and scores
+    that do not; one launch each."""
     genome = np.random.default_rng(1).integers(0, 4, 20_000).astype(np.int8)
-    pats, plens, texts, tlens, quals, ws = _batch(band_w, 301, 40, band_w,
-                                                  genome)
-    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    pats, plens, texts, tlens, quals, ws = _batch(band_w + lp, nb, lp,
+                                                  band_w, genome)
+    kw = dict(scheme=(BIG if big else SCHEMES)[atype], atype=atype,
+              band_w=band_w)
     if atype == AlignmentType.GLOBAL:  # keep the goal cell in the band
         tlens = np.clip(plens + np.random.default_rng(2).integers(
             -band_w, band_w + 1, len(plens)), 0, tlens).astype(np.int32)
     cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
     dev = [a.to(cuda) for a in cpu]
     want = banded_score_batch(*cpu, **kw)
-    k1 = banded_dp.banded_score(*dev, **kw)
     gw = banded_dp.pack_genome_words(genome)
+    banded_dp.reset_launch_counts()
+    k1 = banded_dp.banded_score(*dev, **kw)
     k3 = banded_dp.banded_score_packed(
         dev[0], dev[1], gw.to(cuda), torch.from_numpy(ws).to(cuda), dev[3],
         dev[4], **kw)
+    k2_r, k2_d = banded_dp.banded_directions(*dev, **kw)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    assert counts == {"K1": 1, "K2": 1, "K3": 1, "K4": 0, "K5": 0,
+                      "K5_dirs": 0, "K6": 0, "K7": 0}
     want3 = banded_dp.banded_score_packed(
         cpu[0], cpu[1], gw, torch.from_numpy(ws), cpu[3], cpu[4], **kw)
     want_r, want_d = banded_directions_batch(*cpu, **kw)
-    k2_r, k2_d = banded_dp.banded_directions(*dev, **kw)
-    torch.cuda.synchronize()
-    assert (want["score"] > -(1 << 29)).float().mean() > 0.5  # paths exist
+    if nb > 1 and not big:  # paths exist
+        assert (want["score"] > -(1 << 29)).float().mean() > 0.5
     for k in want:
         assert torch.equal(k1[k].cpu(), want[k]), ("K1", k)
         assert torch.equal(k3[k].cpu(), want3[k]), ("K3", k)
         assert torch.equal(k2_r[k].cpu(), want_r[k]), ("K2", k)
     assert torch.equal(k2_d.cpu(), want_d)
+    for g, w in zip(_walk({k: v.cpu() for k, v in k2_r.items()},
+                          k2_d.cpu(), band_w),
+                    _walk(want_r, want_d, band_w)):
+        assert torch.equal(g, w)
 
 
 def _long_inputs(seed, nb, lp, band_w, atype):
@@ -118,15 +145,17 @@ def _walk(res, dirs, band_w):
                         i0, k0, res["score"] > -(1 << 29))
 
 
-@pytest.mark.parametrize("band_w", [15, 63, 200])
+@pytest.mark.parametrize("lp,band_w", [(2016, 15), (2017, 31), (2016, 32),
+                                       (2017, 63), (2017, 64), (2016, 200)])
 @pytest.mark.parametrize("atype", list(AlignmentType),
                          ids=[a.name.lower() for a in AlignmentType])
-def test_k4_long_matches_plain(cuda, atype, band_w):
+def test_k4_long_matches_plain(cuda, atype, lp, band_w):
     """K4 score-only (symbol and packed windows) and with flags at Lp
-    2016, bit-identical to the plain versions, walks included."""
-    lp = 2016
+    2016-2017: its group tiers (32, 64, 128 cells, at their edges) and
+    the block-per-alignment tiers past 128 cells, bit-identical to the
+    plain versions, walks included."""
     pats, plens, texts, tlens, quals, ws, genome = _long_inputs(
-        band_w, 24, lp, band_w, atype)
+        band_w, 25, lp, band_w, atype)
     kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
     cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
     dev = [a.to(cuda) for a in cpu]
@@ -156,15 +185,20 @@ def test_k4_long_matches_plain(cuda, atype, band_w):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("lp,band_w,big", [(128, 63, False),
+                                           (129, 32, False),
+                                           (128, 63, True)],
+                         ids=["lp128_w63", "lp129_w32", "lp128_w63_big"])
 @pytest.mark.parametrize("atype", list(AlignmentType),
                          ids=[a.name.lower() for a in AlignmentType])
-def test_wide_band_short_calls_route_to_k4(cuda, atype):
-    """--band 63 on short reads: K1-, K2- and K3-shaped calls launch K4
-    and equal the plain versions."""
-    band_w, lp = 63, 128
+def test_wide_band_short_calls_route_to_k4(cuda, atype, lp, band_w, big):
+    """--band 63 on short reads (and band_w 32, the first band past 64
+    cells): K1-, K2- and K3-shaped calls launch K4 and equal the plain
+    versions, walks included; also with scores past a signed byte."""
     pats, plens, texts, tlens, quals, ws, genome = _long_inputs(
         7, 301, lp, band_w, atype)
-    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    kw = dict(scheme=(BIG if big else SCHEMES)[atype], atype=atype,
+              band_w=band_w)
     assert banded_dp.route(lp, band_w, False) == "K4"
     cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
     dev = [a.to(cuda) for a in cpu]
@@ -188,6 +222,10 @@ def test_wide_band_short_calls_route_to_k4(cuda, atype):
         assert torch.equal(k3[k].cpu(), want3[k]), ("K3", k)
         assert torch.equal(k2_r[k].cpu(), want_r[k]), ("K2", k)
     assert torch.equal(k2_d.cpu(), want_d)
+    for g, w in zip(_walk({k: v.cpu() for k, v in k2_r.items()},
+                          k2_d.cpu(), band_w),
+                    _walk(want_r, want_d, band_w)):
+        assert torch.equal(g, w)
 
 
 def test_k4_widest_shape(cuda):
