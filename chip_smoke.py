@@ -7,6 +7,10 @@
     python3 chip_smoke.py --turns PARENT    # --times on PARENT and on this
                                             # checkout in turns (parent,
                                             # this, this, parent)
+    python3 chip_smoke.py --times ROOT --rows K1,K3_path
+                                            # only the kernel phases that
+                                            # time these rows (timed_rows'
+                                            # names); --turns takes it too
 
 Phases, each of which raises (exit code != 0, no result line) on any
 failure:
@@ -15,21 +19,26 @@ failure:
 2. the build: nvcc compiles the kernels from nvbio_tpu_torch/ops/csrc
    (one process per source, started together); the registers, shared
    bytes and spills of every instantiation of the sub-warp group kernel
-   (K2, K4 up to 128 cells) from ptxas;
+   (K1-K3, K4 up to 128 cells) from ptxas;
 3. K1, K2, K3 against their plain PyTorch versions on the card, bit for
    bit, at the extension batch's shape (NB = 32767 windows, 128-row
-   patterns, band_w = 15), for all three alignment types; K2's walk
-   outputs too; CUDA-event times of kernel and plain version (K2 here
-   is its throughput row); K1 at bench.py's shape (2 097 152 x 100 bp x
-   band 31);
+   patterns, band_w = 15), for all three alignment types (K1 and K3 also
+   with scores past a signed byte); K2's walk outputs too; CUDA-event
+   times of kernel and plain version (K2 and K3 here are their
+   throughput rows); K1 at bench.py's shape (2 097 152 x 100 bp x band
+   31) and on an eighth of it at band_w 31 (63 cells, K1's widest);
 4. K4 against its plain versions at the long-read path's shapes
    (score-only NB = 8192, directions NB = 1024; Lp = 2016, band_w = 63),
    for all three alignment types, flags and walks included; times;
-4b. K2 and K4 at the shapes their paths launch them: K2 over the 4096
-   winners of a short-read batch (128 rows, band_w 15) and K4 at the
-   paired-end rescue's chunked call (rescue_shape(): 14 336 x 128, Lt
-   199, band_w 63, checked against the real call in phase 16), all
-   three types against the plain versions (flags and walks too), times
+4b. K2, K3 and K4 at the shapes their paths launch them: K2 over the
+   4096 winners of a short-read batch (128 rows, band_w 15), K3 over a
+   batch's extension slots (32 768 x 128, band_w 15, the first 5 000
+   with a pattern, the rest zero-length pad lanes; checked against the
+   real calls in phase 7) and K4 at the paired-end rescue's chunked call
+   (rescue_shape(): 14 336 x 128, Lt 199, band_w 63, checked against
+   the real call in phase 16), all three types against the plain
+   versions (flags and walks too; K3 also with scores past a signed
+   byte), times
    with the calls queued and as issued (launch cost included), bounds,
    and the block shape with the warps an SM the call keeps resident
    (occupancy(): sm_90's rules over the ptxas registers and shared
@@ -37,13 +46,16 @@ failure:
 5. the wide-band repair: K1-, K2- and K3-shaped calls at band_w = 63
    (Lp = 128, NB = 32767) launch K4 and equal the plain versions;
 6. the golden dataset through build_index + map_reads --device cuda:
-   SAM identical to tests/data/golden_se.sam.gz (ignoring @PG);
+   SAM identical to tests/data/golden_se.sam.gz (ignoring @PG); and
+   with -S *.bam under --device cuda and --device cpu: BGZF BAM whose
+   decompressed bytes are identical (ignoring @PG);
 7. the short-read path at real size: a seeded random genome of GRCh38
    chr20's length, 100 000 simulated 100 bp reads, build_index then
    map_reads --device cuda --batch 4096 with the launch counts reset
    just before; accuracy bars, throughput, peak memory, a per-stage
-   breakdown of one batch, and the first 4096 reads re-mapped with
-   --device cpu to identical SAM lines;
+   breakdown of one batch (with the shapes of the extension's K3 calls
+   and their lanes with a pattern), and the first 4096 reads re-mapped
+   with --device cpu to identical SAM lines;
 8. the long-read path at real size: 20 000 simulated 2 kb reads on the
    same index, map_reads --max-read-len 2048 --band 63 --batch 1024
    --device cuda with the counts reset just before; K4 launched,
@@ -94,8 +106,8 @@ lists the ported kernels (K1-K7, K5 as its score and its flag entry
 points) as JSON, with the launches of the path that runs each (K2, K3:
 the short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark;
 K5 with flags: the pass-3 run; K7: the int16 opt-in phase), the time
-and plain time at the phase shapes (K2 at the short-read path's 4096
-winners, phase 4b), and the least time the card could
+and plain time at the phase shapes (K2 and K3 at the short-read path's
+calls, phase 4b), and the least time the card could
 take for the same call (bound_ms: int32 operations over 132 SMs x 64
 lanes x the max SM clock, K7's int16 operations over twice that, or
 bytes over 3.35 TB/s, whichever is larger; the DP kernels' operations
@@ -127,6 +139,12 @@ NB, LP, BAND_W = 32_767, 128, 15  # extension batch of the main path
 # the main path's K2 call: the 4096 winners of a short-read batch
 # (mapper.traceback_walk_windows), 100 bp reads bucketed to 128 rows
 K2_PATH_NB = 4_096
+# the main path's K3 call: a 4096-read batch's extension slots
+# (mapper.extend_candidates: 2 strands x 16 candidates x extend_frac
+# 0.25 = 32 768 lanes, Lp 128, Lt 158, band_w 15), of which only the
+# kept candidates, compacted to the front, have a pattern (plen > 0);
+# phase_real_size reads the real calls and checks both against these
+K3_PATH_NB, K3_PATH_LIVE = 32_768, 5_000
 DEV = "cuda"
 BENCH_NB, BENCH_LP = 2_097_152, 100  # bench.py:43-56
 # the long-read path: 1024-read chunks of 2 kb reads (bucketed to 2016)
@@ -273,8 +291,8 @@ def phase_build():
 
 def group_ptxas(by_source):
     """Registers and spills of each instantiation of group_gotoh.cuh's
-    kernel from nvcc's ptxas report, by source: K2's in banded_gotoh.cu,
-    K4's (bands up to 128 cells) in long_gotoh.cu."""
+    kernel from nvcc's ptxas report, by source: K1's, K2's and K3's in
+    banded_gotoh.cu, K4's (bands up to 128 cells) in long_gotoh.cu."""
     import re
 
     tiers = []
@@ -323,6 +341,17 @@ def cuda_ms(torch, fn, reps, queued=True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def big_schemes():
+    """A scheme for each alignment type with a score past a signed byte:
+    the group kernel's compare-and-select substitution (no byte table)."""
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+
+    return {AlignmentType.GLOBAL: GotohScheme(mismatch_min=150,
+                                              mismatch_max=300),
+            AlignmentType.SEMI_GLOBAL: GotohScheme(n_penalty=200),
+            AlignmentType.LOCAL: GotohScheme(match=130)}
 
 
 def dp_inputs(np, nb, lp, band_w, genome, rng):
@@ -462,6 +491,18 @@ def phase_kernels(torch, np):
         # K1 and K3 read the same windows: they must agree with each other
         errs["K3"] = max(errs["K3"], max_abs_err(
             torch, [r3[k] for k in keys], [r1[k] for k in keys]))
+        # scores past a signed byte: the compare-and-select substitution
+        big = dict(kw, scheme=big_schemes()[atype])
+        errs["K1"] = max(errs["K1"], max_abs_err(
+            torch, list(banded_dp.banded_score(
+                pats, plens, texts, tlens, quals, **big).values()),
+            list(banded_score_batch(pats, plens, texts, tlens, quals,
+                                    **big).values())))
+        errs["K3"] = max(errs["K3"], max_abs_err(
+            torch, list(banded_dp.banded_score_packed(
+                pats, plens, gwords, ws, tlens, quals, **big).values()),
+            list(banded_dp.banded_score_packed_plain(
+                pats, plens, gwords, ws, tlens, quals, **big).values())))
         # the walk over the kernel's flags equals the walk over the plain
         # version's flags
         stride = 2 * BAND_W + 1
@@ -483,7 +524,8 @@ def phase_kernels(torch, np):
             fail(f"{atype.name}: only {n_ok} of {NB} lanes have a path, "
                  "too few for the comparison to mean much")
         log(f"[kernels] {atype.name}: K1, K2 (+walk), K3 bit-identical to "
-            f"the plain versions over {NB} windows ({n_ok} with a path)")
+            f"the plain versions over {NB} windows ({n_ok} with a path); "
+            "K1, K3 also with scores past a signed byte")
         if atype != AlignmentType.SEMI_GLOBAL:  # the mapper's type
             continue
         cells = band_cells(torch, plens, tlens, BAND_W)
@@ -627,19 +669,21 @@ def group_tier(band_w, dirs):
 
 
 def occupancy(kernel, band_w, nb, dirs):
-    """The block shape of the group kernel a K2/K4 call of this band
-    launches (group_tier; 128 threads, 128 / G alignments a block), the
-    blocks an SM holds by the occupancy rules of sm_90 (64 warps, 32
+    """The block shape of the group kernel a K1-K4 call of this band
+    launches over ``nb`` alignments (count those with a pattern: a warp
+    of zero-length lanes runs no row) (group_tier; 128 threads, 128 / G
+    alignments a block), the blocks an SM holds by the occupancy rules of sm_90 (64 warps, 32
     blocks, 64 K registers allocated 256 a warp, 228 KiB of shared memory
     with 1 KiB reserved a block) from the ptxas registers and shared
     bytes of its SEMI_GLOBAL instantiation, and the warps an SM this
     call's grid keeps resident.  None without a ptxas report of the
     group kernel (a cached build, the parent tree of a --turns run)."""
     tier = group_tier(band_w, dirs)
-    src = "banded_gotoh.cu" if kernel == "K2" else "long_gotoh.cu"
+    src = "long_gotoh.cu" if kernel == "K4" else "banded_gotoh.cu"
     match = [t for t in GROUP_TIERS or () if tier and t["source"] == src
              and (t["G"], t["CPT"]) == tier and t["atype"] == 1
-             and not t["packed"] and t["dirs"] == dirs and t["byte_table"]]
+             and t["packed"] == (kernel == "K3") and t["dirs"] == dirs
+             and t["byte_table"]]
     if not match:
         return None
     t, warps = match[0], 128 // 32
@@ -655,11 +699,13 @@ def occupancy(kernel, band_w, nb, dirs):
 
 
 def phase_path_shapes(torch, np):
-    """K2 and K4 at the shapes their paths give them, all three types
-    against the plain versions, SEMI_GLOBAL timed by CUDA events with its
-    bound, queued and as the host issues the calls (launch_ms): K2 over
-    the 4096 winners of a short-read batch (128 rows, band_w 15) and K4
-    at the paired-end rescue's chunked call."""
+    """K2, K3 and K4 at the shapes their paths give them, all three types
+    against the plain versions (K3 also with scores past a signed byte),
+    SEMI_GLOBAL timed by CUDA events with its bound, queued and as the
+    host issues the calls (launch_ms): K2 over the 4096 winners of a
+    short-read batch (128 rows, band_w 15), K3 over a batch's extension
+    slots (K3_PATH_NB lanes, the first K3_PATH_LIVE with a pattern) and
+    K4 at the paired-end rescue's chunked call."""
     from nvbio_tpu_torch.alignment.batched import (banded_directions_batch,
                                                    banded_score_batch)
     from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
@@ -669,29 +715,45 @@ def phase_path_shapes(torch, np):
     rng = np.random.default_rng(SEED + 10)
     genome = rng.integers(0, 4, 8_000_000).astype(np.int8)
     rnb, rlp, rlt, rw = rescue_shape()
+    gwords = banded_dp.pack_genome_words(genome, device=dev)
     rows = [("K2_path", "K2", True, dp_inputs(np, K2_PATH_NB, LP, BAND_W,
                                                genome, rng), BAND_W, 10)]
     res_in = list(long_inputs(np, rnb, rlp, rw, genome, rng))
     res_in[2] = np.ascontiguousarray(res_in[2][:, :rlt])
     res_in[3] = np.minimum(res_in[3], rlt)
     res_in[6] = np.minimum(res_in[6], rlt)
+    k3_in = dp_inputs(np, K3_PATH_NB, LP, BAND_W, genome, rng)
+    k3_in[1][K3_PATH_LIVE:] = 0  # the pad lanes past the kept candidates
+    rows.append(("K3_path", "K3", False, k3_in, BAND_W, 10))
     rows.append(("K4_rescue", "K4", False, tuple(res_in), rw, 10))
     keys = ("score", "p_end", "t_end")
     out = {}
     for name, kernel, dirs, arrays, w, reps in rows:
-        pats, plens, texts, win_tlens, quals, _, global_tlens = (
+        pats, plens, texts, win_tlens, quals, ws, global_tlens = (
             torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in arrays)
         nb, lp = pats.shape
+        live = int((plens > 0).sum())
         worst = 0
-        for atype in AlignmentType:
+        schemes = [(atype, GotohScheme(
+            match=2 if atype == AlignmentType.LOCAL else 0), True)
+            for atype in AlignmentType]
+        if kernel == "K3":  # the compare-and-select substitution too
+            schemes += [(a, sc, False) for a, sc in big_schemes().items()]
+        for atype, scheme, timed in schemes:
             tlens = (global_tlens if atype == AlignmentType.GLOBAL
                      else win_tlens)
-            kw = dict(scheme=GotohScheme(
-                match=2 if atype == AlignmentType.LOCAL else 0), atype=atype,
-                band_w=w)
+            kw = dict(scheme=scheme, atype=atype, band_w=w)
             args = (pats, plens, texts, tlens, quals)
-            if dirs:
+            if kernel == "K3":
+                pargs = (pats, plens, gwords, ws, tlens, quals)
+
+                def kern():
+                    return banded_dp.banded_score_packed(*pargs, **kw)
+
+                def plain():
+                    return banded_dp.banded_score_packed_plain(*pargs, **kw)
+            elif dirs:
                 def kern():
                     return banded_dp.banded_directions(*args, **kw)
 
@@ -721,21 +783,22 @@ def phase_path_shapes(torch, np):
                 err = max_abs_err(torch, [got[k] for k in keys],
                                   [want[k] for k in keys])
             n_ok = int((want["score"] > -(1 << 29)).sum())
-            if err or n_ok < nb // 3:
+            if err or n_ok < live // 3:
                 fail(f"{name} {atype.name}: max_abs_err {err}, {n_ok} of "
-                     f"{nb} lanes with a path")
+                     f"{live} lanes with a path")
             worst = max(worst, err)
-            if atype != AlignmentType.SEMI_GLOBAL:
+            if atype != AlignmentType.SEMI_GLOBAL or not timed:
                 continue
             cells = band_cells(torch, plens, tlens, w)
             ms, pms = cuda_ms(torch, kern, reps), cuda_ms(torch, plain, 1)
             launch_ms = cuda_ms(torch, kern, reps, queued=False)
             flag_bytes = nb * lp * (2 * w + 1) if dirs else 0
             bms, by, yard = gotoh_bound(
-                cells, dp_bytes(*args, out_bytes=12 * nb + flag_bytes), dirs)
-            occ = occupancy(kernel, w, nb, dirs)
+                cells, dp_bytes(*(pargs if kernel == "K3" else args),
+                                out_bytes=12 * nb + flag_bytes), dirs)
+            occ = occupancy(kernel, w, live, dirs)
             out[name] = {"kernel": kernel, "shape": [nb, lp, texts.shape[1]],
-                         "band_w": w, "dirs": dirs, "ms": ms,
+                         "live": live, "band_w": w, "dirs": dirs, "ms": ms,
                          "launch_ms": launch_ms, "plain_ms": pms,
                          "bound_ms": bms, "bound_by": by,
                          "yard_bound_ms": yard, "cells": cells,
@@ -743,8 +806,10 @@ def phase_path_shapes(torch, np):
         out[name]["max_abs_err"] = worst
         o = out[name]
         log(f"[path] {name}: {kernel}{' with flags' if dirs else ''} "
-            f"{nb} x {lp} (Lt {texts.shape[1]}), band_w {w}: all three types"
-            f" bit-identical to the plain version{' (walks too)' if dirs else ''};"
+            f"{nb} x {lp} (Lt {texts.shape[1]}, {live} lanes with a pattern)"
+            f", band_w {w}: all three types bit-identical to the plain "
+            f"version{' (walks too)' if dirs else ''}"
+            f"{', both substitution forms' if kernel == 'K3' else ''};"
             f" SEMI_GLOBAL {o['ms']:.4f} ms queued, {o['launch_ms']:.4f} ms as"
             f" issued ({o['gcups']:.1f} GCUPS), bound {o['bound_ms']:.4f} ms "
             f"({o['bound_by']}), share {o['bound_ms'] / o['ms']:.3f} "
@@ -818,48 +883,55 @@ def phase_wide_band(torch, np):
 
 
 def phase_bench_k1(torch, np):
-    """K1 at bench.py's problem shape (all rows full length)."""
+    """K1 at bench.py's problem shape (all rows full length, band_w 15),
+    and on an eighth of its lanes at band_w 31, the widest band K1 keeps
+    (63 cells; wider goes to K4)."""
     from nvbio_tpu_torch.alignment.batched import banded_score_batch
     from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
     from nvbio_tpu_torch.ops import banded_dp
 
     dev = torch.device(DEV)
-    rng = np.random.default_rng(0)
-    lt = BENCH_LP + 2 * BAND_W
-    pats = torch.from_numpy(rng.integers(0, 4, (BENCH_NB, BENCH_LP),
-                                         dtype=np.int8)).to(dev)
-    texts = torch.from_numpy(rng.integers(0, 4, (BENCH_NB, lt),
-                                          dtype=np.int8)).to(dev)
-    texts[:, BAND_W:BAND_W + BENCH_LP] = pats
-    for _ in range(3):  # sprinkle mutations, as bench.py does
-        ii = torch.from_numpy(rng.integers(0, lt, BENCH_NB)).to(dev)
-        texts[torch.arange(BENCH_NB, device=dev), ii] = torch.from_numpy(
-            rng.integers(0, 4, BENCH_NB, dtype=np.int8)).to(dev)
-    plens = torch.full((BENCH_NB,), BENCH_LP, dtype=torch.int32, device=dev)
-    tlens = torch.full((BENCH_NB,), lt, dtype=torch.int32, device=dev)
-    quals = torch.from_numpy(rng.integers(20, 41, (BENCH_NB, BENCH_LP),
-                                          dtype=np.uint8)).to(dev)
-    kw = dict(scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
-              band_w=BAND_W)
-    args = (pats, plens, texts, tlens, quals)
-    got = banded_dp.banded_score(*args, **kw)
-    want = banded_score_batch(*args, **kw)
-    err = max_abs_err(torch, list(got.values()), list(want.values()))
-    if err:
-        fail(f"K1 differs from its plain version at bench shape: {err}")
-    cells = band_cells(torch, plens, tlens, BAND_W)
-    ms = cuda_ms(torch, lambda: banded_dp.banded_score(*args, **kw), 5)
-    pms = cuda_ms(torch, lambda: banded_score_batch(*args, **kw), 1)
-    bms, by, yard = gotoh_bound(cells,
-                                dp_bytes(*args, out_bytes=12 * BENCH_NB))
-    log(f"[bench] K1 {BENCH_NB} x {BENCH_LP} bp x band {2 * BAND_W + 1}: "
-        f"{ms:.2f} ms = {cells / ms / 1e6:.1f} GCUPS (plain version "
-        f"{pms:.1f} ms = {cells / pms / 1e6:.2f} GCUPS), bit-identical; "
-        f"bound {bms:.3f} ms ({by}), share {bms / ms:.3f} (yardstick "
-        f"{yard / ms:.3f})")
-    return {"ms": ms, "gcups": cells / ms / 1e6, "plain_ms": pms,
-            "plain_gcups": cells / pms / 1e6, "bound_ms": bms,
-            "bound_by": by, "yard_bound_ms": yard}
+    out = {}
+    for name, nb, w in (("K1_bench", BENCH_NB, BAND_W),
+                        ("K1_w31", BENCH_NB // 8, 31)):
+        rng = np.random.default_rng(0)
+        lt = BENCH_LP + 2 * w
+        pats = torch.from_numpy(rng.integers(0, 4, (nb, BENCH_LP),
+                                             dtype=np.int8)).to(dev)
+        texts = torch.from_numpy(rng.integers(0, 4, (nb, lt),
+                                              dtype=np.int8)).to(dev)
+        texts[:, w:w + BENCH_LP] = pats
+        for _ in range(3):  # sprinkle mutations, as bench.py does
+            ii = torch.from_numpy(rng.integers(0, lt, nb)).to(dev)
+            texts[torch.arange(nb, device=dev), ii] = torch.from_numpy(
+                rng.integers(0, 4, nb, dtype=np.int8)).to(dev)
+        plens = torch.full((nb,), BENCH_LP, dtype=torch.int32, device=dev)
+        tlens = torch.full((nb,), lt, dtype=torch.int32, device=dev)
+        quals = torch.from_numpy(rng.integers(20, 41, (nb, BENCH_LP),
+                                              dtype=np.uint8)).to(dev)
+        kw = dict(scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
+                  band_w=w)
+        args = (pats, plens, texts, tlens, quals)
+        got = banded_dp.banded_score(*args, **kw)
+        want = banded_score_batch(*args, **kw)
+        err = max_abs_err(torch, list(got.values()), list(want.values()))
+        if err:
+            fail(f"K1 differs from its plain version at {name}: {err}")
+        cells = band_cells(torch, plens, tlens, w)
+        ms = cuda_ms(torch, lambda: banded_dp.banded_score(*args, **kw), 5)
+        pms = cuda_ms(torch, lambda: banded_score_batch(*args, **kw), 1)
+        bms, by, yard = gotoh_bound(cells, dp_bytes(*args, out_bytes=12 * nb))
+        log(f"[bench] {name}: K1 {nb} x {BENCH_LP} bp x band {2 * w + 1}: "
+            f"{ms:.3f} ms = {cells / ms / 1e6:.1f} GCUPS (plain version "
+            f"{pms:.1f} ms = {cells / pms / 1e6:.2f} GCUPS), bit-identical; "
+            f"bound {bms:.3f} ms ({by}), share {bms / ms:.3f} (yardstick "
+            f"{yard / ms:.3f})")
+        out[name] = {"ms": ms, "gcups": cells / ms / 1e6, "plain_ms": pms,
+                     "plain_gcups": cells / pms / 1e6, "bound_ms": bms,
+                     "bound_by": by, "yard_bound_ms": yard, "band_w": w,
+                     "nb": nb, "max_abs_err": err}
+        del pats, texts, quals
+    return out
 
 
 def phase_k7(torch, np):
@@ -1418,6 +1490,27 @@ def phase_golden(torch):
         fail(f"golden run did not launch K3 and K2: {counts}")
     log(f"[golden] SAM byte-identical to golden_se.sam.gz under --device "
         f"cuda ({len(got)} lines; launches {counts})")
+    # -S *.bam writes BAM: the same bytes under both devices, @PG aside
+    bams = {}
+    for dev in (DEV, "cpu"):
+        mapr(["-x", f"{d}/g.npz", "-U", f"{d}/r.fq", "-S", f"{d}/{dev}.bam",
+              "--device", dev, "--batch", "128"])
+        with open(f"{d}/{dev}.bam", "rb") as f:
+            raw = f.read()
+        if not raw.startswith(b"\x1f\x8b\x08\x04") or not raw.endswith(
+                bytes.fromhex("1f8b08040000000000ff0600424302001b00030000"
+                              "00000000000000")):
+            fail(f"-S {dev}.bam did not write BGZF (magic, EOF block)")
+        raw = gzip.decompress(raw)
+        n_text = int.from_bytes(raw[4:8], "little")
+        text = raw[8:8 + n_text].decode().splitlines(keepends=True)
+        bams[dev] = ([ln for ln in text if not ln.startswith("@PG")],
+                     raw[8 + n_text:], raw[:4])
+    if bams[DEV] != bams["cpu"] or bams[DEV][2] != b"BAM\x01":
+        fail("golden -S *.bam: the decompressed BAM under --device cuda "
+             "differs from --device cpu's")
+    log(f"[golden] -S *.bam: BGZF BAM, decompressed bytes identical under "
+        f"--device cuda and --device cpu ({len(bams[DEV][1])} record bytes)")
     return counts
 
 
@@ -1666,7 +1759,8 @@ def phase_pe(torch, np, g):
 def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
                     band_w=15):
     """Host-clock ms per stage (synchronised) for full batches of a
-    real-size run; the median of batches 2-4."""
+    real-size run, the median of batches 2-4; and the extension's K3
+    calls, (NB, Lp, Lt, band_w, lanes with a pattern) each."""
     from nvbio_tpu_torch.io.sequence import ReadBatchIterator
     from nvbio_tpu_torch.io.index_file import load_index
     from nvbio_tpu_torch.models import mapper as M
@@ -1681,7 +1775,7 @@ def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
                           max_read_len=max_len, band_w=band_w,
                           sa_sample=meta["sa_sample"], lut_k=meta["lut_k"])
     m = M.Mapper(fm, ssa, genome, params=params, lut=meta["lut"])
-    rows = []
+    rows, calls = [], []
     batches = iter(ReadBatchIterator(reads_fq, batch))
     for _ in range(4):
         names, seqs, quals = next(batches, (None, None, None))
@@ -1712,9 +1806,20 @@ def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
         cand, ovf, n_drop = M.select_and_locate(
             m.fm, m.ssa, lo, hi, offs, sval, reads.shape[1], params=p)
         t0 = mark("select+locate", t0)
-        ext = M.extend_candidates(m.fm, m.gwords, all_r, all_q, lens2, cand,
-                                  params=p, genome=m.genome)
-        t0 = mark(f"extend ({ext_k})", t0)
+        k3 = M.banded_score_packed
+
+        def k3_call(pats, plens, *a, **kw):
+            calls.append((*pats.shape, pats.shape[1] + 2 * kw["band_w"],
+                          kw["band_w"], plens))
+            return k3(pats, plens, *a, **kw)
+
+        M.banded_score_packed = k3_call
+        try:
+            ext = M.extend_candidates(m.fm, m.gwords, all_r, all_q, lens2,
+                                      cand, params=p, genome=m.genome)
+            t0 = mark(f"extend ({ext_k})", t0)
+        finally:
+            M.banded_score_packed = k3
         ext["locate_dropped"] = n_drop
         ext["overflow"] = ovf.reshape(2, -1).any(0) | ext.pop(
             "cand_overflow")
@@ -1730,7 +1835,8 @@ def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
         assert len(recs) == len(names)
         rows.append(t)
     rows = rows[1:] or rows  # the first batch warms the allocator
-    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+    return ({k: float(np.median([r[k] for r in rows])) for k in rows[0]},
+            [(*c[:4], int((c[4] > 0).sum())) for c in calls])
 
 
 def phase_real_size(torch, np):
@@ -1807,12 +1913,24 @@ def phase_real_size(torch, np):
     log(f"[real] first {CPU_READS} reads re-mapped with --device cpu: "
         f"identical SAM records ({cpu_s:.1f}s with the plain versions)")
 
-    stages = stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/r.fq")
+    stages, k3_calls = stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/r.fq")
     log("[real] one 4096-read batch, ms per stage (synchronised, median "
         "of 3): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    # the K3_path row (phase_path_shapes) times the extension's call:
+    # its shape must be the real calls', its pattern lanes within a
+    # fifth of theirs (the median of the four batches)
+    log(f"[real] the extension's K3 calls (NB, Lp, Lt, band_w, lanes with "
+        f"a pattern): {k3_calls}")
+    shape = (K3_PATH_NB, LP, LP + 2 * BAND_W, BAND_W)
+    live = float(np.median([c[4] for c in k3_calls]))
+    if ({c[:4] for c in k3_calls} != {shape}
+            or abs(K3_PATH_LIVE - live) > 0.2 * live):
+        fail(f"the extension's K3 calls {k3_calls} differ from the K3_path "
+             f"row's {shape} with {K3_PATH_LIVE} lanes with a pattern")
     return {"build_s": build_s, "launches": launches, "peak_bytes": peak,
             "aligned": frac_al, "correct": frac_ok, "stats": stats,
-            "cpu_subset_s": cpu_s, "stages_ms": stages}, g
+            "cpu_subset_s": cpu_s, "stages_ms": stages,
+            "k3_calls": k3_calls}, g
 
 
 def phase_long_reads(torch, np, g):
@@ -1889,8 +2007,8 @@ def phase_long_reads(torch, np, g):
         f"SAM records under --device cuda ({sams[DEV][1]:.1f}s) and "
         f"--device cpu ({sams['cpu'][1]:.1f}s)")
 
-    stages = stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/long.fq",
-                             batch=1024, max_len=2048, band_w=LONG_W)
+    stages, _ = stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/long.fq",
+                                batch=1024, max_len=2048, band_w=LONG_W)
     log("[long] one 1024-read batch, ms per stage (synchronised, median "
         "of 3): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
     return {"launches": launches, "peak_bytes": peak, "aligned": frac_al,
@@ -1898,43 +2016,63 @@ def phase_long_reads(torch, np, g):
             "cuda_subset_s": sams[DEV][1], "cpu_subset_s": sams["cpu"][1]}
 
 
-def kernel_phases(torch, np, result):
+def kernel_phases(torch, np, result, only=None):
     """The kernel phases (3, 4, 4b, 9, 10, K1 at bench.py's shape, 14)
-    into ``result``: every kernel against its plain version, timed."""
-    result["kernels"] = phase_kernels(torch, np)
-    result["kernels"]["K4"] = phase_k4(torch, np)
-    result["path_shapes"] = phase_path_shapes(torch, np)
-    result["kernels"].update(phase_k5(torch, np))
-    result["kernels"]["K6"] = phase_k6(torch, np)
+    into ``result``: every kernel against its plain version, timed.  With
+    ``only`` (row names of timed_rows), just the phases that give them."""
+    def run(*rows):
+        return only is None or any(r in only for r in rows)
+
+    k = result["kernels"] = {}
+    if run("K1", "K2", "K3"):
+        k.update(phase_kernels(torch, np))
+    if run("K4", "K4_dirs"):
+        k["K4"] = phase_k4(torch, np)
+    result["path_shapes"] = (phase_path_shapes(torch, np)
+                             if run("K2_path", "K3_path", "K4_rescue")
+                             else {})
+    if run("K5", "K5_dirs"):
+        k.update(phase_k5(torch, np))
+    if run("K6", "K6_32w"):
+        k["K6"] = phase_k6(torch, np)
     torch.cuda.empty_cache()
-    result["bench_k1"] = phase_bench_k1(torch, np)
+    result["bench_k1"] = (phase_bench_k1(torch, np)
+                          if run("K1_bench", "K1_w31") else {})
     torch.cuda.empty_cache()
-    result["kernels"]["K7"] = phase_k7(torch, np)
+    if run("K7", "K7_wide"):
+        k["K7"] = phase_k7(torch, np)
     torch.cuda.empty_cache()
     result["rows"] = timed_rows(result)
 
 
 def timed_rows(result):
-    """Every timed kernel row of the kernel phases, by name: its ms, the
-    bound (GOTOH_OPS a cell for banded Gotoh), the bound at the earlier
-    records' yardstick, the time as issued where measured, and the group
-    kernel's block shape for the K2/K4 rows; logged one a line."""
-    k, ps = result["kernels"], result["path_shapes"]
-    k4 = k["K4"]
-    rows = {"K1": k["K1"], "K1_bench": result["bench_k1"], "K2": k["K2"],
-            "K2_path": ps["K2_path"], "K3": k["K3"], "K4": k4,
-            "K4_dirs": {"ms": k4["dirs_ms"], "bound_ms": k4["dirs_bound_ms"],
-                        "yard_bound_ms": k4["dirs_yard_bound_ms"]},
-            "K4_rescue": ps["K4_rescue"], "K5": k["K5"],
-            "K5_dirs": k["K5_dirs"], "K6": k["K6"],
-            "K6_32w": k["K6"]["shapes"][
-                f"{MYERS_SHAPES[1][0]}x{MYERS_SHAPES[1][1]}"],
-            "K7": k["K7"]["row"], "K7_wide": k["K7"]["wide"]}
-    occ = {"K2": occupancy("K2", BAND_W, NB, True),
+    """Every timed kernel row of the kernel phases that ran, by name: its
+    ms, the bound (GOTOH_OPS a cell for banded Gotoh), the bound at the
+    earlier records' yardstick, the time as issued where measured, and
+    the group kernel's block shape for the K1-K4 rows; logged one a
+    line."""
+    k, ps, bk = result["kernels"], result["path_shapes"], result["bench_k1"]
+    rows = {n: k[n] for n in ("K1", "K2", "K3", "K4", "K5", "K5_dirs", "K6")
+            if n in k}
+    rows.update(bk)
+    if "K4" in k:
+        k4 = k["K4"]
+        rows["K4_dirs"] = {"ms": k4["dirs_ms"], "bound_ms": k4["dirs_bound_ms"],
+                           "yard_bound_ms": k4["dirs_yard_bound_ms"]}
+    rows.update(ps)
+    if "K6" in k:
+        rows["K6_32w"] = k["K6"]["shapes"][
+            f"{MYERS_SHAPES[1][0]}x{MYERS_SHAPES[1][1]}"]
+    if "K7" in k:
+        rows["K7"], rows["K7_wide"] = k["K7"]["row"], k["K7"]["wide"]
+    occ = {"K1": occupancy("K1", BAND_W, NB, False),
+           "K2": occupancy("K2", BAND_W, NB, True),
+           "K3": occupancy("K3", BAND_W, NB, False),
+           "K1_bench": occupancy("K1", BAND_W, BENCH_NB, False),
+           "K1_w31": occupancy("K1", 31, BENCH_NB // 8, False),
            "K4": occupancy("K4", LONG_W, LONG_NB, False),
-           "K4_dirs": occupancy("K4", LONG_W, LONG_DIRS_NB, True),
-           "K2_path": ps["K2_path"]["occupancy"],
-           "K4_rescue": ps["K4_rescue"]["occupancy"]}
+           "K4_dirs": occupancy("K4", LONG_W, LONG_DIRS_NB, True)}
+    occ.update({n: r["occupancy"] for n, r in ps.items()})
     out = {}
     for name, r in rows.items():
         o = out[name] = {"ms": r["ms"], "bound_ms": r["bound_ms"],
@@ -1952,9 +2090,10 @@ def timed_rows(result):
     return out
 
 
-def times_main(root):
+def times_main(root, only=None):
     """--times: the card, the build and the kernel phases of the package
-    in ``root``; prints their rows as one JSON line."""
+    in ``root`` (only those of the rows ``only`` names, if given); prints
+    their rows as one JSON line."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -1963,20 +2102,21 @@ def times_main(root):
     torch.cuda.set_device(0)
     result = {}
     build_s, tiers = phase_build()
-    kernel_phases(torch, np, result)
+    kernel_phases(torch, np, result, only)
     log(json.dumps({"root": root, "nvidia_smi": smi, "build_s": build_s,
                     "group_tiers": tiers, "rows": result["rows"]}))
 
 
-def turns_main(parent):
+def turns_main(parent, only=None):
     """--turns PARENT: --times on the parent checkout and on this one in
     turns (parent, this, this, parent), one process each, on one card;
     the rows to OUT/turns.json."""
     runs = []
+    rows = ["--rows", ",".join(only)] if only else []
     for root in (parent, ROOT, ROOT, parent):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--times", root],
-            capture_output=True, text=True, timeout=1200)
+            [sys.executable, os.path.abspath(__file__), "--times", root,
+             *rows], capture_output=True, text=True, timeout=1200)
         sys.stdout.write(proc.stdout)
         if proc.returncode != 0:
             sys.stdout.write(proc.stderr[-4000:])
@@ -2010,13 +2150,19 @@ def main():
         fail("run from a checkout of the repository (nvbio_tpu_torch/ "
              "not found beside this script)")
     args = sys.argv[1:]
+    only = None
+    if len(args) == 4 and args[2] == "--rows":
+        only = args[3].split(",")
+        args = args[:2]
     if args[:1] in (["--times"], ["--turns"]) and len(args) == 2:
         root = os.path.abspath(args[1])
         if not os.path.isdir(os.path.join(root, "nvbio_tpu_torch")):
             fail(f"{root} holds no nvbio_tpu_torch/")
-        return (times_main if args[0] == "--times" else turns_main)(root)
-    if args:
-        fail("usage: chip_smoke.py [--times ROOT | --turns PARENT_ROOT]")
+        return (times_main if args[0] == "--times" else turns_main)(root,
+                                                                    only)
+    if args or only:
+        fail("usage: chip_smoke.py [--times ROOT | --turns PARENT_ROOT] "
+             "[--rows NAME,...]")
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -2079,10 +2225,9 @@ def main():
             ("K7", "banded_gotoh16.cu", "nvbio_tpu/ops/banded_dp.py:117",
              "int16 opt-in phase")):
         k = result["kernels"][name]
-        if name == "K2":  # timed over the winners, as the path calls it
-            k = dict(result["path_shapes"]["K2_path"],
-                     max_abs_err=max(k["max_abs_err"], result["path_shapes"]
-                                     ["K2_path"]["max_abs_err"]))
+        if name in ("K2", "K3"):  # timed at the shape the path calls it
+            p = result["path_shapes"][f"{name}_path"]
+            k = dict(p, max_abs_err=max(k["max_abs_err"], p["max_abs_err"]))
         n = paths[path][name]
         if n < 1:
             fail(f"the {path} never launched {name}: {paths[path]}")

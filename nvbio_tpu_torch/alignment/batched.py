@@ -31,8 +31,9 @@ wavefront kernel K5 (``nvbio_tpu/ops/wavefront_dp.py:33-40``, raw twin
 values): no SCORE_FLOOR clamp, and GLOBAL reads the goal cell at
 ``clip(k, 0, 2w)`` where the Pallas contract says NEG_INF.
 
-The CUDA kernels in ``nvbio_tpu_torch/ops/csrc/banded_gotoh.cu``
-compute exactly this, one thread per alignment.
+The CUDA kernels in ``nvbio_tpu_torch/ops/csrc/banded_gotoh.cu`` (K1-K3)
+and ``long_gotoh.cu`` (K4) compute exactly this, several lanes an
+alignment (``group_gotoh.cuh``) or one block an alignment.
 """
 
 from __future__ import annotations

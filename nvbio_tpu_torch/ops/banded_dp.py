@@ -12,6 +12,11 @@ Port of ``nvbio_tpu/ops/banded_dp.py``.  Three kernels in
   the plain version's ``(R, Lp, 2w+1)`` layout, the mapper's traceback
   DP (replaces ``banded_directions_pallas``, ``banded_dp.py:620``).
 
+All three run the sub-warp band-parallel kernel of
+``csrc/group_gotoh.cuh`` (G lanes an alignment, CPT cells a lane, the
+tier chosen at launch by band and by flags; K4's bands up to 128 cells
+share it).
+
 K7, ``banded_score16`` in ``csrc/banded_gotoh16.cu``, is K1 with int16
 DP state and its own output contract (replaces ``banded_score_pallas``
 with ``compute_dtype="int16"``, ``_make_kernel_masked``
@@ -21,7 +26,7 @@ otherwise, as the JAX package does.
 
 ``route()`` picks the kernel for a call's shape: patterns longer than
 LONG_THRESHOLD go to K4 (``long_dp.py``, ``csrc/long_gotoh.cu``), as in
-the JAX package, and so do bands wider than K1-K3's register capacity
+the JAX package, and so do bands wider than K1-K3's widest tier
 (MAX_BAND cells), with identical outputs.
 
 Each wrapper takes its plain PyTorch version (``alignment/batched.py``)
@@ -42,7 +47,7 @@ from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
 from . import _build, _launch, long_dp, myers, wavefront_dp
 
 #: widest band (2 * band_w + 1) K1-K3 are instantiated for; wider bands
-#: go to K4's band-parallel kernel
+#: go to K4 (the same group kernel's wider tiers, then long_gotoh.cu's)
 MAX_BAND = 64
 #: patterns longer than this go to K4 (``nvbio_tpu/ops/banded_dp.py:48``)
 LONG_THRESHOLD = 512
@@ -136,7 +141,7 @@ def route(lp: int, band_w: int, with_dirs: bool, packed: bool = False,
     patterns longer than LONG_THRESHOLD (the JAX package's dispatch,
     whatever the compute type); K7 for a ``compute_dtype="int16"`` call
     whose shape and ``scheme`` ``int16_ok`` admits, at any band; K4 for
-    bands wider than K1-K3's register capacity (MAX_BAND cells);
+    bands wider than K1-K3's widest tier (MAX_BAND cells);
     otherwise K2 with flags, K3 over packed windows, K1."""
     if lp > LONG_THRESHOLD:
         return "K4"

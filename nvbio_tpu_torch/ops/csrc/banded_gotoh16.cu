@@ -14,8 +14,9 @@
 // cell k = tlen - plen + w, the LOCAL sink the earliest row, then the
 // smallest k.
 //
-// Design: K1's (banded_gotoh.cu: one thread, the band in registers, E
-// sequential along the band), with TWO alignments per thread.  The TPU
+// Design: one thread, the band in registers, E sequential along the
+// band (the design of K1 before it moved to group_gotoh.cuh), with TWO
+// alignments per thread.  The TPU
 // kernel packed two int16 elements per 32-bit lane slot; here each
 // 32-bit register holds the same cell of two alignments, lane 2t in its
 // low and lane 2t + 1 in its high halfword, and every step of the

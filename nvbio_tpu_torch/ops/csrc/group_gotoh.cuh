@@ -1,7 +1,7 @@
 // Band-parallel banded Gotoh in sub-warp groups, for bands up to 128
-// cells: K2 (banded_gotoh.cu, bands up to 64 cells) and K4's tiers up to
-// 128 cells (long_gotoh.cu), score-only, over packed windows, and with
-// flags.  One template, parameters G (lanes an alignment), CPT (cells a
+// cells: K1, K2 and K3 (banded_gotoh.cu, bands up to 64 cells) and K4's
+// tiers up to 128 cells (long_gotoh.cu), score-only, over packed
+// windows, and with flags.  One template, parameters G (lanes an alignment), CPT (cells a
 // lane), the alignment type, PACKED and DIRS.
 //
 // What it computes is nvbio_tpu_torch/alignment/batched.py cell for cell,
@@ -389,24 +389,30 @@ using Int = std::integral_constant<int, V>;
 // long-read lanes), so more lanes an alignment keep more warps in
 // flight.  Score-only, CPT = 8 cells (G = 4 / 4 / 8 / 16) halves the
 // per-row shuffles and staging for each cell, and the calls are large
-// enough (8 192 long-read lanes, 14 336 rescue chunks) to fill the SMs
-// at half the warps.  MAX_CELLS is the widest band of the design.
+// enough (8 192 long-read lanes, 14 336 rescue chunks; K1/K3's 32 767
+// extension lanes) to fill the SMs at half the warps.  For K1/K3, 4 x 8
+// beat 2 x 16 and 8 x 4 at 31 cells (8 x 4 tied on the extension call's
+// ~5 000 live lanes), and 8 x 8 beat 4 x 16 at 63 (PERF.md §6).
+// MAX_CELLS is the widest band of the design; a caller's MAXC (64 for
+// K1-K3) leaves the wider tiers uninstantiated.
 // Calls f(Int<G>, Int<CPT>) for the band's tier.
 constexpr int MAX_CELLS = 128;
 
-template <bool DIRS, class F>
+template <bool DIRS, int MAXC, class F>
 cudaError_t with_tier(int band_w, F&& f) {
   const int band = 2 * band_w + 1;
-  if (band > MAX_CELLS) return cudaErrorInvalidValue;
+  if (band > MAXC) return cudaErrorInvalidValue;
   if (band <= 16) return f(Int<4>(), Int<4>());
   if constexpr (DIRS) {
     if (band <= 32) return f(Int<8>(), Int<4>());
-    if (band <= 64) return f(Int<16>(), Int<4>());
-    return f(Int<32>(), Int<4>());
+    if constexpr (MAXC > 64)
+      if (band > 64) return f(Int<32>(), Int<4>());
+    return f(Int<16>(), Int<4>());
   } else {
     if (band <= 32) return f(Int<4>(), Int<8>());
-    if (band <= 64) return f(Int<8>(), Int<8>());
-    return f(Int<16>(), Int<8>());
+    if constexpr (MAXC > 64)
+      if (band > 64) return f(Int<16>(), Int<8>());
+    return f(Int<8>(), Int<8>());
   }
 }
 
@@ -423,10 +429,10 @@ cudaError_t launch_tier_atype(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool PACKED, bool DIRS>
+template <bool PACKED, bool DIRS, int MAXC = MAX_CELLS>
 cudaError_t launch(const Args& a, int atype, cudaStream_t stream) {
   if (a.nb == 0) return cudaSuccess;
-  return with_tier<DIRS>(a.band_w, [&](auto g, auto c) {
+  return with_tier<DIRS, MAXC>(a.band_w, [&](auto g, auto c) {
     constexpr int G = decltype(g)::value, CPT = decltype(c)::value;
     switch (atype) {
       case GLOBAL:

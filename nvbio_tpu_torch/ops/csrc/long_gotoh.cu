@@ -17,7 +17,7 @@
 //   replace nvbio_tpu/ops/long_dp.py  _make_long_kernel / _long_call
 //   (banded_score_long_pallas, banded_directions_long_pallas).  The
 //   wrappers in ops/banded_dp.py also route K1/K2/K3 calls whose band is
-//   wider than banded_gotoh.cu's register capacity here.
+//   wider than banded_gotoh.cu's 64 cells here.
 //
 // What it computes is nvbio_tpu_torch/alignment/batched.py cell for cell
 // (the plain versions, bit-identical to the TPU kernel's outputs by its

@@ -30,7 +30,7 @@ def _parse(argv):
     p.add_argument("-U", help="unpaired reads (FASTQ/FASTA/SAM, .gz ok)")
     p.add_argument("-1", dest="m1", help="mate-1 FASTQ(.gz)")
     p.add_argument("-2", dest="m2", help="mate-2 FASTQ(.gz)")
-    p.add_argument("-S", "--sam", required=True, help="output SAM(.gz)")
+    p.add_argument("-S", "--sam", required=True, help="output SAM (.gz ok), or BAM for a .bam path")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; never picked implicitly")
     p.add_argument("-L", "--seed-len", type=int, default=22)
@@ -150,6 +150,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from ..io.bam import BamWriter
     from ..io.fastq import FastqBatchReader
     from ..io.sam import SamWriter
     from ..io.sequence import ReadBatchIterator, open_read_iter
@@ -256,9 +257,11 @@ def main(argv=None):
 
     n_reads = n_aligned = n_pairs = n_proper = n_disc = 0
     t1 = time.perf_counter()
-    with SamWriter(args.sam, meta["contig_names"], meta["contig_lens"],
-                   cmdline=" ".join(argv if argv is not None
-                                    else sys.argv[1:])) as writer:
+    # BAM for a .bam path, as the reference chooses; SAM (.gz ok) else
+    writer_cls = BamWriter if args.sam.endswith(".bam") else SamWriter
+    with writer_cls(args.sam, meta["contig_names"], meta["contig_lens"],
+                    cmdline=" ".join(argv if argv is not None
+                                     else sys.argv[1:])) as writer:
         if paired:
             for (names, r1, l1, qm1, r2, l2, qm2, res1, res2,
                  info) in mapper.map_pairs_stream(packed_pe()):

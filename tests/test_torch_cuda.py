@@ -1,11 +1,13 @@
 """CUDA kernels against their plain PyTorch versions, on the card: K1-K3
-at their own bands (every tier edge of K2's sub-warp groups), K4 for
-long patterns (Lp 2016-2017, its group tiers and the block-per-alignment
-tiers above 128 cells) and for the wide bands (band_w 32, 63) that
-route() sends it from K1-K3-shaped calls, K5
-(score and flags, shared-memory and scratch state), K6 (register and
-scratch words), K7 (register and scratch tiers), the two-pass wide-band
-CIGAR, sw_benchmark, and paired-end map_reads (CUDA SAM = CPU SAM).
+at their own bands (every tier edge of their sub-warp groups), K1 and K3
+at the mapper's extension shape (pad lanes, Lp 320, windows at the
+genome's end), K4 for long patterns (Lp 2016-2017, its group tiers and
+the block-per-alignment tiers above 128 cells) and for the wide bands
+(band_w 32, 63) that route() sends it from K1-K3-shaped calls, K5 (score
+and flags, shared-memory and scratch state), K6 (register and scratch
+words), K7 (register and scratch tiers), the two-pass wide-band CIGAR,
+sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
+map_reads (CUDA SAM = CPU SAM) and -S *.bam (CUDA BAM = CPU BAM).
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -120,6 +122,57 @@ def test_kernels_match_plain(cuda, atype, band_w, nb, lp, big):
                           k2_d.cpu(), band_w),
                     _walk(want_r, want_d, band_w)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lp", [128, 320], ids=["lp128", "lp320"])
+@pytest.mark.parametrize("big", [False, True], ids=["byte_table", "big"])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k1_k3_at_the_extension_shape(cuda, atype, big, lp):
+    """K1 and K3 as the mapper's extension calls them: 100 bp reads in
+    rows bucketed to 128 and in the CLI's --max-read-len 320, band_w 15,
+    a batch (4 099) that no block's alignments divide, the kept lanes a
+    prefix and zero-length pad lanes past it, and packed windows that
+    start in the genome's last words (read past its end into the
+    PACK_TAIL_WORDS zero words, as the plain version's clamp does)."""
+    band_w, nb, live = 15, 4_099, 1_600
+    genome = np.random.default_rng(5).integers(0, 4, 30_001).astype(np.int8)
+    pats, plens, texts, tlens, quals, ws = _batch(lp, nb, lp, band_w,
+                                                  genome)
+    rng = np.random.default_rng(lp)
+    plens[:live] = rng.integers(90, 101, live)
+    plens[live:] = 0
+    n = len(genome)
+    ws[6:70] = n - 1 - 5 * np.arange(64)  # windows at the genome's end
+    tlens[6:70] = np.clip(n - ws[6:70], 0, lp + 2 * band_w)
+    texts[6:70] = 7
+    for i in range(6, 70):
+        texts[i, :tlens[i]] = genome[ws[i]:ws[i] + tlens[i]]
+    if atype == AlignmentType.GLOBAL:
+        tlens = np.clip(plens + rng.integers(-band_w, band_w + 1, nb), 0,
+                        tlens).astype(np.int32)
+    kw = dict(scheme=(BIG if big else SCHEMES)[atype], atype=atype,
+              band_w=band_w)
+    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+    dev = [a.to(cuda) for a in cpu]
+    gw = banded_dp.pack_genome_words(genome)
+    banded_dp.reset_launch_counts()
+    k1 = banded_dp.banded_score(*dev, **kw)
+    k3 = banded_dp.banded_score_packed(
+        dev[0], dev[1], gw.to(cuda), torch.from_numpy(ws).to(cuda), dev[3],
+        dev[4], **kw)
+    torch.cuda.synchronize()
+    assert (banded_dp.banded_score.launches,
+            banded_dp.banded_score_packed.launches) == (1, 1)
+    want = banded_score_batch(*cpu, **kw)
+    want3 = banded_dp.banded_score_packed(
+        cpu[0], cpu[1], gw, torch.from_numpy(ws), cpu[3], cpu[4], **kw)
+    if not big:
+        assert (want["score"][:live] > -(1 << 29)).float().mean() > 0.5
+    for k in want:
+        assert torch.equal(want3[k], want[k]), ("K3 plain = K1 plain", k)
+        assert torch.equal(k1[k].cpu(), want[k]), ("K1", k)
+        assert torch.equal(k3[k].cpu(), want3[k]), ("K3", k)
 
 
 def _long_inputs(seed, nb, lp, band_w, atype):
@@ -297,6 +350,70 @@ def test_golden_se_sam_on_cuda(cuda, tmp_path):
            if not ln.startswith("@PG")]
     want = list(gzip.open(os.path.join(DATA, "golden_se.sam.gz"), "rt"))
     assert got == want
+
+
+def _golden_pe(d):
+    """The golden paired-end dataset, made as tests/test_golden.py:42
+    makes it (with the port's copies of the simulator and writers)."""
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_pairs
+
+    g = random_genome(150_000, seed=777)
+    write_fasta(str(d / "g.fa"), [("golden_pe_ref", g)])
+    sim = simulate_pairs(g, 120, 100, insert_mean=280, insert_sd=25,
+                         error_rate=0.02, seed=778)
+    for m in (1, 2):
+        write_fastq(str(d / f"r{m}.fq"),
+                    [(f"p{i}", sim[f"seqs{m}"][i].astype(np.uint8),
+                      sim[f"quals{m}"][i]) for i in range(120)])
+
+
+def test_golden_pe_sam_on_cuda(cuda, tmp_path):
+    """The golden paired-end fixture under --device cuda, through K3,
+    K2 and K4 (the rescue)."""
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    _golden_pe(tmp_path)
+    build([str(tmp_path / "g.fa"), str(tmp_path / "g.npz")])
+    banded_dp.reset_launch_counts()
+    assert mapr(["-x", str(tmp_path / "g.npz"), "-1",
+                 str(tmp_path / "r1.fq"), "-2", str(tmp_path / "r2.fq"),
+                 "-S", str(tmp_path / "out.sam"), "--device", "cuda",
+                 "--batch", "128"]) == 0
+    counts = {k: f.launches for k, f in banded_dp.KERNELS.items()}
+    assert all(counts[k] > 0 for k in ("K2", "K3", "K4")), counts
+    got = [ln for ln in open(tmp_path / "out.sam")
+           if not ln.startswith("@PG")]
+    want = list(gzip.open(os.path.join(DATA, "golden_pe.sam.gz"), "rt"))
+    assert got == want
+
+
+def test_bam_on_cuda_equals_cpu(cuda, tmp_path):
+    """-S *.bam on the golden single-end dataset: BGZF BAM whose
+    decompressed bytes are the same under --device cuda and --device cpu,
+    the @PG header line aside."""
+    from test_torch_golden import write_golden_dataset
+
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    write_golden_dataset(tmp_path)
+    build([str(tmp_path / "g.fa"), str(tmp_path / "g.npz")])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        path = tmp_path / f"{dev}.bam"
+        assert mapr(["-x", str(tmp_path / "g.npz"), "-U",
+                     str(tmp_path / "r.fq"), "-S", str(path), "--device",
+                     dev, "--batch", "128"]) == 0
+        raw = gzip.decompress(path.read_bytes())
+        assert raw[:4] == b"BAM\x01"
+        n_text = int.from_bytes(raw[4:8], "little")
+        text = raw[8:8 + n_text].decode().splitlines(keepends=True)
+        got[dev] = ([ln for ln in text if not ln.startswith("@PG")],
+                    raw[8 + n_text:])
+    assert got["cuda"] == got["cpu"]
 
 
 @pytest.mark.parametrize("lp,band_w", [(32, 7), (64, 15), (128, 31),
