@@ -99,13 +99,28 @@ failure:
    accuracy bars, pairs/s, proper and rescued shares, peak memory, a
    per-stage breakdown of one batch (with the shapes of the rescue's DP
    calls), and the first 128 pairs mapped under --device cuda and
-   --device cpu to identical SAM lines.
+   --device cpu to identical SAM lines;
+17-20. the alignment modes on the chr20-length index, each run with the
+   counts reset just before and read just after, and each kernel it
+   launches held against its plain version on the arguments of a call
+   the run made (capture(), hold_call()): --local over the 100 000 reads
+   (K3 and K2 in LOCAL; accuracy against the origin less the leading
+   soft clip; the first 4096 under --device cpu too); -N 1 over 5
+   batches (the K3 calls' shapes and live lanes; 1024 reads under both
+   devices; 4096 planted reads with one substitution in every seed,
+   none aligned by -N 0, at their origin under -N 1); -a --max-alns 8
+   over the same reads (K2 over 8 x 4096 winners; 1024 reads under both
+   devices; a planted duplicate whose every read reports both loci,
+   secondaries with FLAG 0x100); PE --local over 4 batches of phase
+   16's pairs (K4 at the window-wide rescue band, band_w 530; 128 pairs
+   under both devices).
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score and its flag entry
 points) as JSON, with the launches of the path that runs each (K2, K3:
 the short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark;
-K5 with flags: the pass-3 run; K7: the int16 opt-in phase), the time
+K5 with flags: the pass-3 run; K7: the int16 opt-in phase; the modes'
+runs must launch theirs too), the time
 and plain time at the phase shapes (K2 and K3 at the short-read path's
 calls, phase 4b), and the least time the card could
 take for the same call (bound_ms: int32 operations over 132 SMs x 64
@@ -161,6 +176,10 @@ K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W = 8_192, 16, 700
 # the paired-end run: pairs, the share with a rescue-only mate 2, the
 # pairs mapped on both devices
 N_PAIRS, PE_RESCUE_SHARE, PE_CPU = 50_000, 0.05, 128
+# the alignment modes' runs on the same index: batches of 4096 of the
+# short-read run's reads under -N 1 and -a, the reads of those mapped
+# under both devices, and the pairs of the paired-end run under --local
+N_MODE_BATCHES, MODE_SUB, N_PE_LOCAL = 5, 1024, 4 * 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
@@ -1930,7 +1949,7 @@ def phase_real_size(torch, np):
     return {"build_s": build_s, "launches": launches, "peak_bytes": peak,
             "aligned": frac_al, "correct": frac_ok, "stats": stats,
             "cpu_subset_s": cpu_s, "stages_ms": stages,
-            "k3_calls": k3_calls}, g
+            "k3_calls": k3_calls}, g, sim
 
 
 def phase_long_reads(torch, np, g):
@@ -2014,6 +2033,411 @@ def phase_long_reads(torch, np, g):
     return {"launches": launches, "peak_bytes": peak, "aligned": frac_al,
             "correct": frac_ok, "stats": stats, "stages_ms": stages,
             "cuda_subset_s": sams[DEV][1], "cpu_subset_s": sams["cpu"][1]}
+
+
+def capture(torch, module, name, calls, kept):
+    """Wrap the kernel wrapper ``module.name`` (the attribute its path
+    calls it by) for one run: each call logs (NB, Lp, Lt, band_w) and its
+    lanes with a pattern (a device tensor, read after the run) into
+    ``calls``, and the first call's arguments go to ``kept`` (per-lane
+    tensors cloned).  Returns the function that restores the wrapper."""
+    fn = getattr(module, name)
+
+    def run(*a, **kw):
+        pats = a[0]
+        nb = pats.shape[0]
+        lt = (a[2].shape[1] if a[2].dim() == 2
+              else pats.shape[1] + 2 * kw["band_w"])  # K3: packed words
+        calls.append((nb, pats.shape[1], lt, kw["band_w"], (a[1] > 0).sum()))
+        if not kept:
+            kept.append(([x.clone() if isinstance(x, torch.Tensor)
+                          and x.dim() and x.shape[0] == nb else x
+                          for x in a], dict(kw)))
+        return fn(*a, **kw)
+
+    setattr(module, name, run)
+    return lambda: setattr(module, name, fn)
+
+
+def mode_run(torch, npz, inputs, sam, flags, wraps=()):
+    """map_reads --device cuda --batch 4096 ``flags`` on ``inputs`` (-U
+    or -1/-2 files), the launch counts reset just before and read just
+    after; ``wraps`` = (module, wrapper name, kernel) to capture().
+    Returns (launches, --stats JSON, calls and kept arguments by
+    kernel)."""
+    from nvbio_tpu_torch.ops import banded_dp
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    calls, kept, undo = {}, {}, []
+    for module, name, kernel in wraps:
+        calls[kernel], kept[kernel] = [], []
+        undo.append(capture(torch, module, name, calls[kernel],
+                            kept[kernel]))
+    try:
+        banded_dp.reset_launch_counts()
+        mapr(["-x", npz, *inputs, "-S", sam, "--device", DEV, "--batch",
+              "4096", "--stats", f"{sam}.json", *flags])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    finally:
+        for u in undo:
+            u()
+    calls = {k: [(*c[:4], int(c[4])) for c in v] for k, v in calls.items()}
+    return launches, json.load(open(f"{sam}.json")), calls, kept
+
+
+def same_sam(npz, inputs, sam, flags, batch, tag):
+    """The SAM records of ``inputs`` mapped under --device cuda and
+    --device cpu at --batch ``batch``: identical, or fail.  Returns
+    (records, seconds by device)."""
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    recs, secs = {}, {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        mapr(["-x", npz, *inputs, "-S", f"{sam}.{dev}", "--device", dev,
+              "--batch", str(batch), *flags])
+        secs[dev] = time.perf_counter() - t0
+        recs[dev] = sam_records(f"{sam}.{dev}")
+    if recs[DEV] != recs["cpu"]:
+        n_diff = sum(a != b for a, b in zip(recs[DEV], recs["cpu"]))
+        fail(f"{tag}: --device cpu SAM differs from --device cuda "
+             f"({n_diff} of {len(recs[DEV])} records)")
+    log(f"[{tag}] {' '.join(flags)}, {' '.join(inputs[1::2])} at --batch "
+        f"{batch}: identical SAM records under --device cuda "
+        f"({secs[DEV]:.1f}s) and --device cpu ({secs['cpu']:.1f}s)")
+    return recs[DEV], secs
+
+
+def hold_call(torch, tag, kernel, kept, reps=10):
+    """A kernel against its plain version on one call a path made (the
+    arguments capture() kept), bit for bit (K2's walks too); CUDA-event
+    times of both, queued, and the bound over the call's needed cells.
+    These launches are not the path's."""
+    from nvbio_tpu_torch.alignment.batched import (banded_directions_batch,
+                                                   banded_score_batch)
+    from nvbio_tpu_torch.ops import banded_dp
+
+    if not kept:
+        fail(f"[{tag}] the path made no {kernel} call to hold")
+    a, kw = kept[0]
+    wrapper, plain, dirs = {
+        "K2": (banded_dp.banded_directions, banded_directions_batch, True),
+        "K3": (banded_dp.banded_score_packed,
+               banded_dp.banded_score_packed_plain, False),
+        "K4": (banded_dp.banded_score, banded_score_batch, False)}[kernel]
+    banded_dp.reset_launch_counts()
+    got, want = wrapper(*a, **kw), plain(*a, **kw)
+    torch.cuda.synchronize()
+    if banded_dp.KERNELS[kernel].launches != 1:
+        fail(f"[{tag}] the call did not launch {kernel}: "
+             f"{ {k: f.launches for k, f in banded_dp.KERNELS.items()} }")
+    keys = ("score", "p_end", "t_end")
+    w = kw["band_w"]
+    if dirs:
+        (r, d), (wr, wd) = got, want
+        err = max(max_abs_err(torch, [r[k] for k in keys] + [d],
+                              [wr[k] for k in keys] + [wd]),
+                  max_abs_err(torch, walk_outputs(torch, r, d, w),
+                              walk_outputs(torch, wr, wd, w)))
+        want = wr
+    else:
+        err = max_abs_err(torch, [got[k] for k in keys],
+                          [want[k] for k in keys])
+    if err:
+        fail(f"[{tag}] {kernel} differs from its plain version on the "
+             f"path's call: max_abs_err {err}")
+    ms = cuda_ms(torch, lambda: wrapper(*a, **kw), reps)
+    pms = cuda_ms(torch, lambda: plain(*a, **kw), 1)
+    pats, plens = a[0], a[1]
+    nb, lp = pats.shape
+    tlens = a[4] if kernel == "K3" else a[3]
+    lt = lp + 2 * w if kernel == "K3" else a[2].shape[1]
+    cells = band_cells(torch, plens, tlens, w)
+    lanes = [x for x in a if isinstance(x, torch.Tensor) and x.dim()
+             and x.shape[0] == nb]
+    # K3 reads its windows' packed words, not the whole genome
+    nbytes = dp_bytes(*lanes, out_bytes=12 * nb) + (
+        nb * (lt // 16 + 2) * 4 if kernel == "K3" else 0) + (
+        nb * lp * (2 * w + 1) if dirs else 0)
+    bms, by, yard = gotoh_bound(cells, nbytes, dirs)
+    live = int((plens > 0).sum())
+    n_ok = int((want["score"] > -(1 << 29)).sum())
+    log(f"[{tag}] {kernel}{' with flags' if dirs else ''} on the path's "
+        f"call, {kw['atype'].name}: {nb} x {lp} (Lt {lt}, {live} lanes with"
+        f" a pattern, {n_ok} with a path), band_w {w}: bit-identical to the "
+        f"plain version{' (walks too)' if dirs else ''}; {ms:.4f} ms queued"
+        f" ({cells / ms / 1e6:.1f} GCUPS), bound {bms:.4f} ms ({by}), share "
+        f"{bms / ms:.3f}, plain {pms:.2f} ms")
+    return {"kernel": kernel, "shape": [nb, lp, lt], "band_w": w,
+            "atype": kw["atype"].name, "live": live, "with_path": n_ok,
+            "dirs": dirs, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "yard_bound_ms": yard, "cells": cells,
+            "max_abs_err": err}
+
+
+def lead_clip(cigar):
+    """Length of a CIGAR's leading soft clip (0 without one)."""
+    i = 0
+    while i < len(cigar) and cigar[i].isdigit():
+        i += 1
+    return int(cigar[:i]) if i < len(cigar) and cigar[i] == "S" else 0
+
+
+def mode_reads(np, sim):
+    """The first N_MODE_BATCHES batches of the short-read run's reads,
+    and their first MODE_SUB, as FASTQ (written once)."""
+    from nvbio_tpu_torch.io.fastq import write_fastq
+
+    d = os.path.join(WORK, "chr20len")
+    if not os.path.exists(f"{d}/modes.fq"):
+        recs = [(f"r{i}", sim["seqs"][i].astype(np.uint8), sim["quals"][i])
+                for i in range(N_MODE_BATCHES * 4096)]
+        write_fastq(f"{d}/modes.fq", recs)
+        write_fastq(f"{d}/modes_sub.fq", recs[:MODE_SUB])
+    return d
+
+
+def phase_local(torch, np, sim):
+    """The short-read run's 100 000 reads through map_reads --local."""
+    from nvbio_tpu_torch.models import mapper as M
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "chr20len")
+    launches, stats, calls, kept = mode_run(
+        torch, f"{d}/g.npz", ["-U", f"{d}/r.fq"], f"{d}/local.sam",
+        ["--local"], wraps=((M, "banded_score_packed", "K3"),
+                            (M, "banded_directions", "K2")))
+    if not (launches["K2"] > 0 and launches["K3"] > 0):
+        fail(f"the --local run did not launch K2 and K3: {launches}")
+    recs = sam_records(f"{d}/local.sam")
+    if len(recs) != N_READS:
+        fail(f"--local: {len(recs)} SAM records for {N_READS} reads")
+    aligned = correct = clipped = 0
+    for i, ln in enumerate(recs):
+        f = ln.split("\t", 6)
+        flag, pos, cigar = int(f[1]), int(f[3]), f[5]
+        if flag & 4:
+            continue
+        aligned += 1
+        lead = lead_clip(cigar)
+        clipped += lead > 0 or cigar.endswith("S")
+        if (int(bool(flag & 16)) == int(sim["true_strand"][i])
+                and abs(pos - 1 - lead - int(sim["true_pos"][i])) <= 8):
+            correct += 1
+    frac_al, frac_ok = aligned / N_READS, correct / max(aligned, 1)
+    log(f"[local] map_reads --local --device cuda --batch 4096: {N_READS} "
+        f"reads in {stats['map_s']:.2f}s = {stats['reads_per_s']:.0f} "
+        f"reads/s; aligned {frac_al:.4f}, within 8 bp of the origin (POS "
+        f"less the leading soft clip) {frac_ok:.4f} of aligned, soft-clipped"
+        f" {clipped}; launches {launches}; K3 calls (NB, Lp, Lt, band_w, "
+        f"lanes with a pattern) {calls['K3'][:3]}..., K2 calls "
+        f"{sorted(set(c[:4] for c in calls['K2']))}")
+    if frac_al < 0.95 or frac_ok < 0.90:
+        fail(f"--local accuracy bars missed: aligned {frac_al}, correct "
+             f"{frac_ok}")
+    t0 = time.perf_counter()
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    mapr(["-x", f"{d}/g.npz", "-U", f"{d}/r_cpu.fq", "-S",
+          f"{d}/local_cpu.sam", "--device", "cpu", "--batch", "4096",
+          "--local"])
+    cpu_s = time.perf_counter() - t0
+    if sam_records(f"{d}/local_cpu.sam") != recs[:CPU_READS]:
+        fail(f"--local: --device cpu SAM differs from --device cuda on the "
+             f"first {CPU_READS} reads")
+    log(f"[local] first {CPU_READS} reads re-mapped with --device cpu: "
+        f"identical SAM records ({cpu_s:.1f}s)")
+    rows = {"K3_local": hold_call(torch, "local", "K3", kept["K3"]),
+            "K2_local": hold_call(torch, "local", "K2", kept["K2"])}
+    secs = time.perf_counter() - t_phase
+    log(f"[local] phase {secs:.1f}s")
+    return {"launches": launches, "stats": stats, "aligned": frac_al,
+            "correct": frac_ok, "soft_clipped": clipped, "cpu_subset_s": cpu_s,
+            "k3_calls": calls["K3"], "rows": rows, "seconds": secs}
+
+
+#: one substitution inside every seed of a 100 bp read at the CLI's
+#: defaults (-L 22, -i S,1,1.15 = 13: seeds at 0, 13, ..., 78), each in
+#: the part of its seed no neighbour overlaps
+PLANTED_SUBS = (5, 23, 36, 49, 62, 75, 90)
+
+
+def phase_n1(torch, np, g, sim):
+    """-N 1 on N_MODE_BATCHES batches of the short-read run's reads, and
+    on planted reads no exact seed places."""
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    t_phase = time.perf_counter()
+    d = mode_reads(np, sim)
+    n = N_MODE_BATCHES * 4096
+    launches, stats, calls, kept = mode_run(
+        torch, f"{d}/g.npz", ["-U", f"{d}/modes.fq"], f"{d}/n1.sam",
+        ["-N", "1"], wraps=((M, "banded_score_packed", "K3"),))
+    if not (launches["K2"] > 0 and launches["K3"] > 0):
+        fail(f"the -N 1 run did not launch K2 and K3: {launches}")
+    recs = sam_records(f"{d}/n1.sam")
+    aligned = correct = 0
+    for i, ln in enumerate(recs):
+        f = ln.split("\t", 4)
+        flag, pos = int(f[1]), int(f[3])
+        if not flag & 4:
+            aligned += 1
+            correct += (int(bool(flag & 16)) == int(sim["true_strand"][i])
+                        and abs(pos - 1 - int(sim["true_pos"][i])) <= 8)
+    frac_al, frac_ok = aligned / n, correct / max(aligned, 1)
+    log(f"[n1] map_reads -N 1 --device cuda --batch 4096: {n} reads in "
+        f"{stats['map_s']:.2f}s = {stats['reads_per_s']:.0f} reads/s; "
+        f"aligned {frac_al:.4f}, correct {frac_ok:.4f} of aligned; "
+        f"escalated {stats['escalated']}, locate_dropped "
+        f"{stats['locate_dropped']}; launches {launches}; K3 calls (NB, Lp, "
+        f"Lt, band_w, lanes with a pattern): {calls['K3']}")
+    if len(recs) != n or frac_al < 0.95 or frac_ok < 0.90:
+        fail(f"-N 1 bars missed: {len(recs)} records, aligned {frac_al}, "
+             f"correct {frac_ok}")
+    same_sam(f"{d}/g.npz", ["-U", f"{d}/modes_sub.fq"], f"{d}/n1_sub.sam",
+             ["-N", "1"], MODE_SUB, "n1")
+
+    # reads with one substitution in every seed: -N 0 places none
+    rng = np.random.default_rng(SEED + 4)
+    starts = rng.integers(0, len(g) - 100, 4096)
+    seqs = g[starts[:, None] + np.arange(100)].astype(np.uint8)
+    for p in PLANTED_SUBS:
+        seqs[:, p] = (seqs[:, p] + 1 + rng.integers(0, 3, 4096)) % 4
+    write_fastq(f"{d}/planted.fq", [
+        (f"p{i}", seqs[i], np.full(100, 35, np.uint8)) for i in range(4096)])
+    placed = {}
+    for mm in ("0", "1"):
+        mapr(["-x", f"{d}/g.npz", "-U", f"{d}/planted.fq", "-S",
+              f"{d}/planted{mm}.sam", "--device", DEV, "--batch", "4096",
+              "-N", mm])
+        placed[mm] = [0, 0]
+        for i, ln in enumerate(sam_records(f"{d}/planted{mm}.sam")):
+            f = ln.split("\t", 4)
+            if not int(f[1]) & 4:
+                placed[mm][0] += 1
+                placed[mm][1] += int(int(f[3]) - 1 == starts[i])
+    log(f"[n1] 4096 planted reads, one substitution in each of the 7 seeds"
+        f": -N 0 aligned {placed['0'][0]}; -N 1 aligned {placed['1'][0]}, "
+        f"at their origin {placed['1'][1]}")
+    if placed["0"][0] or placed["1"][1] < 0.90 * 4096:
+        fail(f"-N 1 planted check missed: {placed}")
+    rows = {"K3_n1": hold_call(torch, "n1", "K3", kept["K3"])}
+    secs = time.perf_counter() - t_phase
+    log(f"[n1] phase {secs:.1f}s")
+    return {"launches": launches, "stats": stats, "aligned": frac_al,
+            "correct": frac_ok, "planted": placed, "k3_calls": calls["K3"],
+            "rows": rows, "seconds": secs}
+
+
+def phase_all(torch, np, sim):
+    """-a --max-alns 8 on N_MODE_BATCHES batches of the short-read run's
+    reads, and on a small genome with a planted duplicate segment."""
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.utils.simulate import random_genome
+
+    t_phase = time.perf_counter()
+    d = mode_reads(np, sim)
+    n = N_MODE_BATCHES * 4096
+    flags = ["-a", "--max-alns", "8"]
+    launches, stats, calls, kept = mode_run(
+        torch, f"{d}/g.npz", ["-U", f"{d}/modes.fq"], f"{d}/all.sam", flags,
+        wraps=((M, "banded_directions", "K2"),))
+    if not (launches["K2"] > 0 and launches["K3"] > 0):
+        fail(f"the -a run did not launch K2 and K3: {launches}")
+    recs = sam_records(f"{d}/all.sam")
+    primary = sum(not int(ln.split("\t", 2)[1]) & 0x100 for ln in recs)
+    log(f"[all] map_reads -a --max-alns 8 --device cuda --batch 4096: {n} "
+        f"reads in {stats['map_s']:.2f}s = {stats['reads_per_s']:.0f} "
+        f"reads/s; {len(recs)} records, {primary} primary, aligned "
+        f"{stats['aligned'] / n:.4f}; launches {launches}; K2 calls (NB, "
+        f"Lp, Lt, band_w, lanes with a pattern): {calls['K2']}")
+    if primary != n or stats["aligned"] < 0.95 * n:
+        fail(f"-a: {primary} primary records for {n} reads, "
+             f"{stats['aligned']} aligned")
+    if {c[:4] for c in calls["K2"]} != {(8 * 4096, LP, LP + 2 * BAND_W,
+                                          BAND_W)}:
+        fail(f"-a: K2 calls {calls['K2']} are not 8 x 4096 winners")
+    same_sam(f"{d}/g.npz", ["-U", f"{d}/modes_sub.fq"], f"{d}/all_sub.sam",
+             flags, MODE_SUB, "all")
+
+    # a planted duplicate: every read reports both loci
+    dd = os.path.join(WORK, "dup")
+    os.makedirs(dd, exist_ok=True)
+    gd = random_genome(40_000, seed=55)
+    gd[30_000:30_200] = gd[5_000:5_200]
+    write_fasta(f"{dd}/g.fa", [("dup_ref", gd)])
+    rng = np.random.default_rng(56)
+    offs = rng.integers(0, 120, 256)
+    write_fastq(f"{dd}/r.fq", [
+        (f"d{i}", gd[5_000 + o:5_080 + o].astype(np.uint8),
+         np.full(80, 35, np.uint8)) for i, o in enumerate(offs)])
+    build([f"{dd}/g.fa", f"{dd}/g.npz"])
+    mapr(["-x", f"{dd}/g.npz", "-U", f"{dd}/r.fq", "-S", f"{dd}/all.sam",
+          "--device", DEV, *flags])
+    by_read = {}
+    for ln in sam_records(f"{dd}/all.sam"):
+        f = ln.split("\t", 4)
+        by_read.setdefault(f[0], []).append((int(f[1]), int(f[3])))
+    # the first record of a read is its primary, every other one is
+    # mapped and carries FLAG 0x100
+    bad = [i for i, o in enumerate(offs)
+           if {5_001 + o, 30_001 + o} - {p for _, p in by_read[f"d{i}"]}
+           or by_read[f"d{i}"][0][0] & 0x104
+           or any(fl & 0x104 != 0x100 for fl, _ in by_read[f"d{i}"][1:])]
+    log(f"[all] planted duplicate (40 kb genome, 200 bp copied 25 kb on): "
+        f"{len(offs) - len(bad)} of {len(offs)} reads report both loci, one"
+        f" primary record and FLAG 0x100 on every other")
+    if bad:
+        fail(f"-a planted duplicate: reads {bad[:8]} miss a locus or a flag")
+    rows = {"K2_all": hold_call(torch, "all", "K2", kept["K2"])}
+    secs = time.perf_counter() - t_phase
+    log(f"[all] phase {secs:.1f}s")
+    return {"launches": launches, "stats": stats, "records": len(recs),
+            "k2_calls": calls["K2"], "rows": rows, "seconds": secs}
+
+
+def phase_pe_local(torch, np):
+    """--local on N_PE_LOCAL pairs of the paired-end run (its 5 % with
+    mate 2's seeds broken included): the rescue is one window-wide band
+    (band_w = maxins + 2 * 15 = 530), K4 on the card."""
+    from nvbio_tpu_torch.models import paired as P
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "chr20len")
+    for m in (1, 2):
+        with open(f"{d}/pe{m}.fq") as src, open(f"{d}/pel{m}.fq", "w") as dst:
+            for _ in range(4 * N_PE_LOCAL):
+                dst.write(src.readline())
+    launches, stats, calls, kept = mode_run(
+        torch, f"{d}/g.npz", ["-1", f"{d}/pel1.fq", "-2", f"{d}/pel2.fq"],
+        f"{d}/pel.sam", ["--local"], wraps=((P, "banded_score", "K4"),))
+    shapes = sorted({c[:4] for c in calls["K4"]})
+    log(f"[pe_local] map_reads -1/-2 --local --device cuda --batch 4096: "
+        f"{N_PE_LOCAL} pairs in {stats['map_s']:.2f}s = "
+        f"{stats['pairs_per_s']:.0f} pairs/s; proper "
+        f"{stats['proper_pairs'] / N_PE_LOCAL:.4f}, rescued "
+        f"{stats['rescued']}, rescue_dropped {stats['rescue_dropped']}, "
+        f"mates aligned {stats['aligned'] / (2 * N_PE_LOCAL):.4f}; launches "
+        f"{launches}; the rescue's calls (NB, Lp, Lt, band_w): {shapes}")
+    if not all(launches[k] > 0 for k in ("K2", "K3", "K4")):
+        fail(f"the PE --local run did not launch K2, K3 and K4: {launches}")
+    if (stats["rescued"] < 1 or stats["proper_pairs"] < 0.90 * N_PE_LOCAL
+            or shapes != [(1024, LP, LP + 2 * 530, 530)]):
+        fail(f"PE --local: rescued {stats['rescued']}, proper "
+             f"{stats['proper_pairs']}, rescue calls {shapes}")
+    same_sam(f"{d}/g.npz", ["-1", f"{d}/pe1_cpu.fq", "-2", f"{d}/pe2_cpu.fq"],
+             f"{d}/pel_sub.sam", ["--local"], PE_CPU, "pe_local")
+    rows = {"K4_local_rescue": hold_call(torch, "pe_local", "K4", kept["K4"])}
+    secs = time.perf_counter() - t_phase
+    log(f"[pe_local] phase {secs:.1f}s")
+    return {"launches": launches, "stats": stats, "rescue_calls": shapes,
+            "rows": rows, "seconds": secs}
 
 
 def kernel_phases(torch, np, result, only=None):
@@ -2184,9 +2608,18 @@ def main():
         torch.cuda.empty_cache()
         result["golden_launches"] = phase_golden(torch)
         result["golden_pe_launches"] = phase_golden_pe(torch)
-        result["real"], genome = phase_real_size(torch, np)
+        result["real"], genome, sim = phase_real_size(torch, np)
+        torch.cuda.empty_cache()
+        result["local"] = phase_local(torch, np, sim)
+        torch.cuda.empty_cache()
+        result["n1"] = phase_n1(torch, np, genome, sim)
+        torch.cuda.empty_cache()
+        result["all"] = phase_all(torch, np, sim)
+        del sim
         torch.cuda.empty_cache()
         result["pe"] = phase_pe(torch, np, genome)
+        torch.cuda.empty_cache()
+        result["pe_local"] = phase_pe_local(torch, np)
         torch.cuda.empty_cache()
         result["long"] = phase_long_reads(torch, np, genome)
     finally:
@@ -2203,7 +2636,11 @@ def main():
              "long-read run": result["long"]["launches"],
              "sw_benchmark --long": result["sw_benchmark"]["launches"],
              "pass 3": result["pass3"]["launches"],
-             "int16 opt-in phase": {"K7": result["kernels"]["K7"]["launches"]}}
+             "int16 opt-in phase": {"K7": result["kernels"]["K7"]["launches"]},
+             "--local run": result["local"]["launches"],
+             "-N 1 run": result["n1"]["launches"],
+             "-a run": result["all"]["launches"],
+             "PE --local run": result["pe_local"]["launches"]}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # (name, source, replaces, the path whose run launches it)

@@ -32,9 +32,11 @@ import torch
 from ..alignment.types import NEG_INF, AlignmentType, gap_penalties
 from ..alignment.walk import runjump_walk
 from ..basic.alphabet import dna_to_char
+from ..fmindex.backtrack import hamming_backtrack_1
 from ..fmindex.index import FMIndex, SSA, backward_search, locate
 from ..io.genome import concat_to_contig
-from ..io.sam import FLAG_REVERSE, FLAG_UNMAPPED, SamRecord
+from ..io.sam import (FLAG_REVERSE, FLAG_SECONDARY, FLAG_UNMAPPED,
+                      SamRecord)
 from ..native import ops_batch_native
 from ..ops.banded_dp import (LONG_THRESHOLD, banded_directions,
                              banded_score, banded_score_packed,
@@ -277,21 +279,54 @@ def select_and_locate(fm: FMIndex, ssa: SSA, lo, hi, offsets, sval, L, *,
     return cand.clamp(min=0), ovf, n_drop
 
 
+def mm_candidates(fm: FMIndex, ssa: SSA, flat_seeds, offsets, L, *,
+                  params: MapperParams):
+    """1-substitution seeding (-N 1): the SA range of every variant of
+    every seed (``hamming_backtrack_1``), up to max_hits_per_mm rows
+    each, located in one compacted pass of its own budget
+    (mm_locate_frac).  Returns (cand (2R, S * seed_len * 4 * CAPV),
+    ovf (2R,), n_drop) in the reference's column order."""
+    R2, S = offsets.shape
+    n = fm.n
+    CAPV = params.max_hits_per_mm
+    NV = params.seed_len * 4
+    bt = hamming_backtrack_1(fm, flat_seeds)
+    vlo = bt["lo"].reshape(R2, S, NV)
+    vsz = torch.where(bt["valid"], bt["hi"] - bt["lo"], 0).reshape(R2, S, NV)
+    use_v = torch.where(vsz > params.max_range, 0, vsz.clamp(max=CAPV))
+    tv = torch.arange(CAPV, device=vlo.device)
+    KV = S * NV * CAPV
+    rows_v = (vlo[..., None] + tv).clamp(0, n).reshape(R2, KV)
+    ok_v = (tv < use_v[..., None]).reshape(R2, KV)
+    pos_v, ok_v2, n_drop = locate_compact(
+        fm, ssa, rows_v, ok_v, k_sample=params.sa_sample,
+        capacity=max(int(R2 * KV * params.mm_locate_frac) // 8 * 8, 512))
+    ovf = (ok_v & ~ok_v2).any(dim=1)
+    offs = offsets[:, :, None].expand(R2, S, NV * CAPV).reshape(R2, KV)
+    cand = torch.where(ok_v2, pos_v - offs, n + 2 * L + 1)
+    return cand.clamp(min=0), ovf, n_drop
+
+
 def candidate_stage(fm, ssa, gwords, reads, lens, quals, *,
                     params: MapperParams, lut=None, uniform_shift: int = -1,
                     genome=None):
     """Strands -> seeds -> search -> select -> locate -> extend: per-
-    candidate (R, 2C) tensors (columns [0, C) forward, [C, 2C) reverse)."""
-    if params.seed_mismatches >= 1:
-        raise NotImplementedError(
-            "seed_mismatches >= 1 (-N 1) is not ported yet")
+    candidate (R, 2C) tensors (columns [0, C) forward, [C, 2C) reverse).
+    With ``seed_mismatches >= 1`` (-N 1) every one-substitution variant
+    of every seed joins the candidate pool (``mm_candidates``)."""
     R, L = reads.shape
     all_reads, all_quals, lens2 = both_strands(
         reads, lens, quals, uniform_shift=uniform_shift)
-    lo, hi, offsets, sval, _ = seed_and_search(
+    lo, hi, offsets, sval, flat_seeds = seed_and_search(
         fm, all_reads, lens2, params=params, lut=lut)
     cand, ovf, n_drop = select_and_locate(fm, ssa, lo, hi, offsets, sval, L,
                                           params=params)
+    if params.seed_mismatches >= 1:
+        cand_v, ovf_v, n_drop_v = mm_candidates(fm, ssa, flat_seeds, offsets,
+                                                L, params=params)
+        cand = torch.cat([cand, cand_v], dim=1)
+        ovf = ovf | ovf_v
+        n_drop = n_drop + n_drop_v
     out = extend_candidates(fm, gwords, all_reads, all_quals, lens2, cand,
                             params=params, genome=genome)
     out["locate_dropped"] = n_drop
@@ -359,6 +394,35 @@ def map_batch(fm: FMIndex, ssa: SSA, gwords, reads, lens, quals, *,
                             params=params, lut=lut,
                             uniform_shift=uniform_shift, genome=genome)
     return top2_finish(cands, lens, params)
+
+
+def map_all_batch(fm: FMIndex, ssa: SSA, gwords, reads, lens, quals, *,
+                  params: MapperParams, k: int = 8, lut=None, genome=None):
+    """All-mappings forward step (-a): the top-k candidates of each read
+    by score (score-descending, ties to the lower column), each with
+    score, strand, win_start, t_end, p_end and ``valid`` (score >=
+    score-min).  "All" is bounded by the 2 * max_candidates slots, as in
+    the reference.  Returns dict of (R, k) tensors."""
+    C = params.max_candidates
+    k = min(k, 2 * C)
+    cands = candidate_stage(fm, ssa, gwords, reads, lens, quals,
+                            params=params, lut=lut, genome=genome)
+    sc = cands["score"]
+    order = torch.argsort(-sc, dim=1, stable=True)[:, :k]
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    scores = take(sc)
+    smin = _score_min(lens, params)
+    return {
+        "score": scores,
+        "valid": (scores >= smin[:, None]) & (lens[:, None] > 0),
+        "strand": (order // C).to(torch.int32),
+        "win_start": take(cands["win_start"]),
+        "t_end": take(cands["t_end"]),
+        "p_end": take(cands["p_end"]),
+    }
 
 
 def _max_cigar_runs(L: int, params: MapperParams) -> int:
@@ -463,9 +527,6 @@ class Mapper:
         # locate positions, a larger one wastes LF steps)
         if ssa.k and params.sa_sample != ssa.k:
             params = replace(params, sa_sample=ssa.k)
-        if params.seed_mismatches >= 1:
-            raise NotImplementedError(
-                "seed_mismatches >= 1 (-N 1) is not ported yet")
         self.params = params
         self.ref_name = ref_name
         self.n = int(genome_symbols.shape[0])
@@ -531,6 +592,14 @@ class Mapper:
         iv = iv_of(max_len)
         return p if iv == p.seed_interval else replace(p, seed_interval=iv)
 
+    def _upload(self, seqs, lens, quals):
+        """A padded host chunk -> (reads int8, lens int64, quals uint8)
+        tensors on the mapper's device."""
+        dev = self.device
+        return (torch.from_numpy(np.ascontiguousarray(seqs, np.int8)).to(dev),
+                torch.from_numpy(lens.astype(np.int64)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(quals, np.uint8)).to(dev))
+
     def _dispatch_chunk(self, seqs, lens, quals, params=None):
         """Map one chunk: forward step + winners-only traceback."""
         R = seqs.shape[0]
@@ -538,10 +607,7 @@ class Mapper:
             lens.max() if len(lens) else seqs.shape[1],
             lens.min() if len(lens) else None)
         seqs, lens, quals = self._pad_chunk(seqs, lens, quals)
-        dev = self.device
-        jr = torch.from_numpy(np.ascontiguousarray(seqs, np.int8)).to(dev)
-        jl = torch.from_numpy(lens.astype(np.int64)).to(dev)
-        jq = torch.from_numpy(np.ascontiguousarray(quals, np.uint8)).to(dev)
+        jr, jl, jq = self._upload(seqs, lens, quals)
         # uniform-length batches take the flip-and-shift revcomp path
         ushift = (seqs.shape[1] - int(lens.max())
                   if len(lens) and lens.min() == lens.max() else -1)
@@ -611,6 +677,65 @@ class Mapper:
             out.extend(self._collect_chunk(self._dispatch_chunk(
                 seqs[s0 : s0 + B], lens[s0 : s0 + B], quals[s0 : s0 + B])))
         return out
+
+    def map_reads_all(self, seqs: np.ndarray, lens: np.ndarray,
+                      quals: np.ndarray, max_alns: int = 8):
+        """All-mappings mode (-a): per read, up to ``max_alns`` distinct
+        alignments at or above score-min, score-descending, each traced
+        back to a full MapResult.  Returns one list per read."""
+        R = seqs.shape[0]
+        B = self.params.batch_size
+        seqs, quals = self._len_bucket(seqs, lens, quals)
+        out: list[list[MapResult]] = []
+        for s0 in range(0, R, B):
+            out.extend(self._map_chunk_all(
+                seqs[s0 : s0 + B], lens[s0 : s0 + B], quals[s0 : s0 + B],
+                max_alns))
+        return out
+
+    def _map_chunk_all(self, seqs, lens, quals, k):
+        """One chunk of -a: map_all_batch, then the (B * K) slots traced
+        back as one pseudo-batch with ``active`` = valid."""
+        R = seqs.shape[0]
+        B = self.params.batch_size
+        seqs, lens, quals = self._pad_chunk(seqs, lens, quals)
+        jr, jl, jq = self._upload(seqs, lens, quals)
+        fwd = map_all_batch(self.fm, self.ssa, self.gwords, jr, jl, jq,
+                            params=self.params, k=k, lut=self.lut,
+                            genome=self.genome)
+        K = fwd["score"].shape[1]
+        res, walk = traceback_walk_batch(
+            self.genome, self.n, jr.repeat_interleave(K, dim=0),
+            jl.repeat_interleave(K), jq.repeat_interleave(K, dim=0),
+            fwd["win_start"].reshape(-1), fwd["strand"].reshape(-1),
+            params=self.params, active=fwd["valid"].reshape(-1))
+        flat_fwd = {
+            "aligned": _host(fwd["valid"]).reshape(-1),
+            "strand": _host(fwd["strand"]).reshape(-1),
+            "win_start": _host(fwd["win_start"]).reshape(-1),
+            "score": _host(fwd["score"]).reshape(-1),
+            "second": np.zeros(B * K, np.int32),
+            "has_second": np.zeros(B * K, bool),
+            "mapq": np.zeros(B * K, np.int32),
+        }
+        results = self._finish(
+            np.repeat(seqs, K, axis=0), np.repeat(lens, K),
+            np.repeat(quals, K, axis=0), flat_fwd, res, walk)
+        return self._group_all(results, min(R, B), K)
+
+    @staticmethod
+    def _group_all(results, R, K):
+        """Group the flat (R * K) -a results by read, dropping repeats of
+        one (pos, strand) that overlapping windows give."""
+        grouped = []
+        for r in range(R):
+            seen, uniq = set(), []
+            for a in results[r * K : (r + 1) * K]:
+                if a.aligned and (a.pos, a.strand) not in seen:
+                    seen.add((a.pos, a.strand))
+                    uniq.append(a)
+            grouped.append(uniq)
+        return grouped
 
     def map_stream(self, packed_iter):
         """Map an iterator of (names, seqs, lens, quals) batches, one
@@ -696,4 +821,20 @@ class Mapper:
             recs.append(SamRecord(
                 names[i], FLAG_REVERSE if mr.strand else 0, rname, lpos + 1,
                 mr.mapq, mr.cigar, seq_str, qual_str, tags=tags))
+        return recs
+
+    def to_sam_records_all(self, names, seqs, lens, quals,
+                           all_results: list[list[MapResult]]):
+        """-a records: per read its best alignment as the primary record
+        (unmapped if none), then the others with FLAG_SECONDARY."""
+        recs = []
+        for i, alns in enumerate(all_results):
+            one = (names[i : i + 1], seqs[i : i + 1], lens[i : i + 1],
+                   quals[i : i + 1])
+            recs.extend(self.to_sam_records(
+                *one, [alns[0] if alns else MapResult(aligned=False)]))
+            for a in alns[1:]:
+                (sec,) = self.to_sam_records(*one, [a])
+                sec.flag |= FLAG_SECONDARY
+                recs.append(sec)
         return recs

@@ -7,9 +7,10 @@ arguments.  Decision ladder per pair, as the reference:
      one ``candidate_stage`` over both mates and a (2C x 2C) score matrix;
   2. rescue: anchor = the best single-end mate; the other mate is
      searched over the anchor's insert window with overlapping band-63
-     semi-global chunks (``_chunk_plan``), through ``ops.banded_dp.
-     banded_score``: the plain K1 on the CPU, K4 on CUDA (``route()``
-     sends 127-cell bands there), with K1's output contract;
+     semi-global chunks (``_chunk_plan``), or, in LOCAL mode, one band
+     over the whole window, through ``ops.banded_dp.banded_score``: the
+     plain K1 on the CPU, K4 on CUDA (``route()`` sends bands past 64
+     cells there), with K1's output contract;
   3. discordant: both mates uniquely aligned but not concordant;
   4. mixed: each mate reported as single-end (or unmapped).
 
@@ -186,17 +187,14 @@ def _rescue(genome, n: int, anchor_ws, anchor_strand, anchor_len,
     if plan is not None:
         res = _chunked_window_score(pats, mate_lens, texts, tlens, pquals,
                                     params, plan)
-    elif params.atype == AlignmentType.SEMI_GLOBAL:
-        # a score-min too permissive for the chunk plan: one band over the
-        # whole window, as the reference (its twin and K1 agree on every
-        # lane the rescue consumes: those at or above score-min)
+    else:
+        # LOCAL, or a score-min too permissive for the chunk plan: one
+        # band over the whole window, as the reference (through its twin;
+        # the twin and K1/K4 agree on every lane the rescue consumes:
+        # those at or above score-min)
         res = banded_score(pats, mate_lens, texts, tlens, pquals,
                            scheme=params.scheme, atype=params.atype,
                            band_w=rescue_w)
-    else:
-        raise NotImplementedError(
-            "paired-end rescue in LOCAL mode (--local) is not ported yet "
-            "(ROADMAP Queue 1, item 8)")
     ws_tight = (win_start + res["t_end"] - res["p_end"]).clamp(
         0, max(n - 1, 0))
     return {"score": res["score"], "win_start": ws_tight,
@@ -455,13 +453,7 @@ class PairedMapper(Mapper):
 
         host = ((padto(s1, PAD), padto(l1, 0), padto(q1, 0)),
                 (padto(s2, PAD), padto(l2, 0), padto(q2, 0)))
-        dev = self.device
-        tensors = tuple(
-            (torch.from_numpy(np.ascontiguousarray(s, np.int8)).to(dev),
-             torch.from_numpy(ln.astype(np.int64)).to(dev),
-             torch.from_numpy(np.ascontiguousarray(q, np.uint8)).to(dev))
-            for s, ln, q in host)
-        return host, tensors
+        return host, tuple(self._upload(*mate) for mate in host)
 
     def _dispatch_pair_chunk(self, s1, l1, q1, s2, l2, q2):
         """Paired forward step + per-mate winners-only traceback."""

@@ -2,15 +2,23 @@
 
 Port of ``nvbio_tpu/tools/map_reads.py`` for single-end and paired-end
 reads, with the reference's flags and defaults (Bowtie2 names:
--x/-U/-1/-2/-S, -L seed length, -i interval, --mp/--rdg/--rfg/--ma/--np,
---score-min, --minins/--maxins, --fr/--rf/--ff, --no-mixed,
---no-discordant, --dovetail, --no-contain, --no-overlap) plus an
-explicit ``--device``:
+-x/-U/-1/-2/-S, -L seed length, -i interval, -N seed mismatches,
+--local, --mp/--rdg/--rfg/--ma/--np, --score-min, --minins/--maxins,
+--fr/--rf/--ff, --no-mixed, --no-discordant, --dovetail, --no-contain,
+--no-overlap; nvBowtie's -a/--all with --max-alns) plus an explicit
+``--device``:
 
     python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -U reads.fq \\
         -S out.sam --device cuda
+    python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -U reads.fq \\
+        -S out.sam --device cuda --local -N 1
+    python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -U reads.fq \\
+        -S out.sam --device cuda -a --max-alns 8
     python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -1 r1.fq \\
         -2 r2.fq -S out.sam --device cuda
+
+As in the reference, -a applies to -U input only: with -1/-2 it is
+taken and has no effect.
 """
 
 from __future__ import annotations
@@ -72,8 +80,14 @@ def _parse(argv):
     p.add_argument("--no-overlap", action="store_true",
                    help="overlapping mates are not concordant "
                    "(bowtie2 --no-overlap)")
+    p.add_argument("-N", dest="seed_mm", type=int, default=0, choices=[0, 1],
+                   help="mismatches allowed in seed (bowtie2 -N)")
+    p.add_argument("--local", action="store_true",
+                   help="local alignment: soft clips, match bonus "
+                   "(bowtie2 --local)")
     p.add_argument("--ma", type=int, default=None,
-                   help="match bonus (default 0 end-to-end)")
+                   help="match bonus (default: 2 in --local, 0 "
+                   "end-to-end)")
     p.add_argument("--mp", default="6,2", metavar="MX,MN",
                    help="max,min mismatch penalty, scaled by base quality")
     p.add_argument("--np", dest="n_pen", type=int, default=1,
@@ -84,7 +98,12 @@ def _parse(argv):
                    help="reference gap open,extend (CIGAR I)")
     p.add_argument("--score-min", default=None, metavar="FN,A,B",
                    help="minimum score function of read length "
-                   "(default L,-0.6,-0.6)")
+                   "(default L,-0.6,-0.6 end-to-end, G,20,8 --local)")
+    p.add_argument("-a", "--all", dest="all_hits", action="store_true",
+                   help="report all alignments above score-min, the "
+                   "best as primary, the others FLAG 0x100 (-U only)")
+    p.add_argument("--max-alns", type=int, default=8,
+                   help="per-read alignment cap in --all mode")
     p.add_argument("--batch", type=int, default=4096,
                    help="reads per device batch")
     p.add_argument("--lut-k", type=int, default=None,
@@ -99,18 +118,10 @@ def _parse(argv):
     p.add_argument("--stats", metavar="JSON",
                    help="write run counters and timings here")
     # reference flags outside this slice of the port
-    p.add_argument("--local", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("-N", dest="seed_mm", type=int, default=0,
-                   help=argparse.SUPPRESS)
-    p.add_argument("-a", "--all", dest="all_hits", action="store_true",
-                   help=argparse.SUPPRESS)
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     p.add_argument("--xprof", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     unported = [
-        (args.local, "--local"),
-        (args.seed_mm, "-N 1"),
-        (args.all_hits, "-a/--all"),
         (args.mesh, "--mesh"),
         (args.xprof, "--xprof"),
     ]
@@ -120,6 +131,8 @@ def _parse(argv):
                     "nvbio_tpu.tools.map_reads")
     if not args.U and not (args.m1 and args.m2):
         p.error("need -U or -1/-2")
+    if args.max_alns < 1:
+        p.error("--max-alns wants a positive count")
     return p, args
 
 
@@ -173,12 +186,13 @@ def main(argv=None):
     mp_mx, mp_mn = _pair(p, args.mp, "--mp")
     rdg_o, rdg_e = _pair(p, args.rdg, "--rdg")
     rfg_o, rfg_e = _pair(p, args.rfg, "--rfg")
+    ma = args.ma if args.ma is not None else (2 if args.local else 0)
     scheme = GotohScheme(
-        match=args.ma if args.ma is not None else 0, mismatch_min=mp_mn,
+        match=ma, mismatch_min=mp_mn,
         mismatch_max=mp_mx, n_penalty=args.n_pen, gap_open=rdg_o,
         gap_extend=rdg_e, ref_gap_open=rfg_o, ref_gap_extend=rfg_e)
-    sm_fn, sm_a, sm_b = _func(p, args.score_min or "L,-0.6,-0.6",
-                              "--score-min")
+    sm = args.score_min or ("G,20,8" if args.local else "L,-0.6,-0.6")
+    sm_fn, sm_a, sm_b = _func(p, sm, "--score-min")
     # seed interval: a constant, or a function of read length that the
     # mapper re-evaluates per chunk; the first read's length seeds the
     # fallback interval
@@ -208,6 +222,8 @@ def main(argv=None):
         seed_interval=seed_interval,
         **({"seed_interval_fn": ifn[0], "seed_interval_a": ifn[1],
             "seed_interval_b": ifn[2]} if ifn else {}),
+        seed_mismatches=args.seed_mm,
+        local=args.local,
         **({"band_w": args.band} if args.band is not None else {}),
         scheme=scheme,
         score_min_fn=sm_fn, score_min_a=sm_a, score_min_b=sm_b,
@@ -272,6 +288,15 @@ def main(argv=None):
                 n_disc += sum(i["discordant"] for i in info)
                 for rec in mapper.to_sam_records_pe(
                         names, r1, l1, qm1, r2, l2, qm2, res1, res2, info):
+                    writer.write(rec)
+        elif args.all_hits:
+            for names, reads, lens, qmat in packed():
+                all_res = mapper.map_reads_all(reads, lens, qmat,
+                                               max_alns=args.max_alns)
+                n_reads += len(all_res)
+                n_aligned += sum(bool(a) for a in all_res)
+                for rec in mapper.to_sam_records_all(names, reads, lens,
+                                                     qmat, all_res):
                     writer.write(rec)
         else:
             for names, reads, lens, qmat, results in mapper.map_stream(

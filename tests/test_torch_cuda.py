@@ -7,7 +7,10 @@ the block-per-alignment tiers above 128 cells) and for the wide bands
 and flags, shared-memory and scratch state), K6 (register and scratch
 words), K7 (register and scratch tiers), the two-pass wide-band CIGAR,
 sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
-map_reads (CUDA SAM = CPU SAM) and -S *.bam (CUDA BAM = CPU BAM).
+map_reads (CUDA SAM = CPU SAM), -S *.bam (CUDA BAM = CPU BAM), and the
+alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
+32 768 winners in LOCAL, hamming_backtrack_1 (-N 1's seed search) and
+the SAM of --local, -N 1 and -a (CUDA SAM = CPU SAM).
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -618,3 +621,141 @@ def test_sw_benchmark_on_cuda(cuda, capsys):
     assert "gotoh_wide_1100" in [r["aligner"] for r in rows]
     counts = {k: f.launches for k, f in banded_dp.KERNELS.items()}
     assert all(counts[k] > 0 for k in ("K1", "K4", "K5", "K6")), counts
+
+
+def _rescue_inputs(seed, nb, lp, band_w):
+    """Mate-rescue windows (paired._rescue): Lt = lp + 2 * band_w, each
+    pattern planted at a start the band reaches (0..band_w) with 3%
+    substitutions and N,
+    every eighth pattern random (no place), ragged lengths, windows cut
+    by the genome's end."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 200_000).astype(np.int8)
+    n, lt = len(genome), lp + 2 * band_w
+    ws = rng.integers(0, n - 200, nb)
+    ws[:2] = [n - lt // 2, n - 150]
+    gpad = np.concatenate([genome, np.full(lt, 7, np.int8)])
+    texts = gpad[ws[:, None] + np.arange(lt)]
+    off = rng.integers(0, band_w + 1, nb)
+    pats = gpad[np.minimum((ws + off)[:, None] + np.arange(lp),
+                           len(gpad) - 1)]
+    pats[::8] = rng.integers(0, 4, (len(pats[::8]), lp))
+    pats = np.where(pats == 7, rng.integers(0, 4, pats.shape), pats)
+    mut = rng.random(pats.shape) < 0.03
+    pats[mut] = rng.integers(0, 5, int(mut.sum()))
+    plens = rng.integers(lp * 3 // 4, lp + 1, nb).astype(np.int32)
+    plens[2] = 0
+    pats = np.where(np.arange(lp) < plens[:, None], pats, 7).astype(np.int8)
+    tlens = np.clip(n - ws, 0, lt).astype(np.int32)
+    quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
+    return pats, plens, texts.astype(np.int8), tlens, quals
+
+
+@pytest.mark.parametrize("atype", [AlignmentType.LOCAL,
+                                   AlignmentType.SEMI_GLOBAL],
+                         ids=["local", "semi_global"])
+def test_k4_at_the_local_rescue_band(cuda, atype):
+    """K4 at PE --local's rescue call (paired._rescue with no chunk plan:
+    band_w = maxins + 2 * 15 = 530, 1 061 cells, Lp 128, Lt 1 188), the
+    block-per-alignment tier, against its plain version (the twin the
+    reference's rescue runs) bit for bit; SEMI_GLOBAL too (a score-min
+    too permissive for the chunk plan takes the same band)."""
+    lp, band_w = 128, 530
+    assert banded_dp.route(lp, band_w, False) == "K4"
+    scheme = GotohScheme(match=2) if atype == AlignmentType.LOCAL else \
+        GotohScheme()
+    kw = dict(scheme=scheme, atype=atype, band_w=band_w)
+    cpu = [torch.from_numpy(a) for a in _rescue_inputs(3, 300, lp, band_w)]
+    banded_dp.reset_launch_counts()
+    got = banded_dp.banded_score(*[a.to(cuda) for a in cpu], **kw)
+    torch.cuda.synchronize()
+    assert long_dp.launch.launches == 1
+    want = banded_score_batch(*cpu, **kw)
+    placed = want["score"] > (0 if atype == AlignmentType.LOCAL else -100)
+    assert placed.float().mean() > 0.5  # most lanes have their pattern
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_k2_local_at_the_all_mappings_shape(cuda):
+    """K2 in LOCAL at -a's traceback call (8 x 4 096 winners x 128 rows,
+    band_w 15) against its plain version run on the card, flags and walks
+    included."""
+    genome = np.random.default_rng(4).integers(0, 4, 400_000).astype(np.int8)
+    pats, plens, texts, tlens, quals, _ = _batch(11, 32_768, 128, 15, genome)
+    kw = dict(scheme=GotohScheme(match=2), atype=AlignmentType.LOCAL,
+              band_w=15)
+    dev = [torch.from_numpy(a).to(cuda)
+           for a in (pats, plens, texts, tlens, quals)]
+    banded_dp.reset_launch_counts()
+    r, d = banded_dp.banded_directions(*dev, **kw)
+    wr, wd = banded_directions_batch(*dev, **kw)
+    torch.cuda.synchronize()
+    assert banded_dp.banded_directions.launches == 1
+    for k in wr:
+        assert torch.equal(r[k], wr[k]), k
+    assert torch.equal(d, wd)
+    for g, w in zip(_walk(r, d, 15), _walk(wr, wd, 15)):
+        assert torch.equal(g, w)
+
+
+def test_backtrack_on_cuda_equals_cpu(cuda):
+    """hamming_backtrack_1 on the card's index tensors equals the same
+    call on the CPU, every output; seeds with N, ragged lengths."""
+    from nvbio_tpu_torch.fmindex.backtrack import hamming_backtrack_1
+    from nvbio_tpu_torch.fmindex.build import build_fm_arrays
+    from nvbio_tpu_torch.io.index_file import index_from_numpy
+
+    rng = np.random.default_rng(12)
+    text = rng.integers(0, 4, 50_000).astype(np.uint8)
+    fm_np, ssa_np = build_fm_arrays(text, sa_sample=4)
+    L, N = 22, 4_096
+    starts = rng.integers(0, len(text) - L, N)
+    seeds = text[starts[:, None] + np.arange(L)].astype(np.int64)
+    sub = rng.random(seeds.shape) < 0.05
+    seeds[sub] = (seeds[sub] + 1) % 4
+    seeds[rng.random(seeds.shape) < 0.01] = 4
+    slens = rng.integers(8, L + 1, N)
+    out = {}
+    for dev in ("cpu", cuda):
+        fm, _, _, _ = index_from_numpy(fm_np, ssa_np, text, device=dev)
+        out[str(dev)] = hamming_backtrack_1(
+            fm, torch.from_numpy(seeds).to(dev),
+            torch.from_numpy(slens).to(dev))
+    for k, v in out["cpu"].items():
+        assert torch.equal(out["cuda"][k].cpu(), v), k
+    assert out["cpu"]["valid"].any()
+
+
+@pytest.mark.parametrize("data,flags", [
+    ("se", ["--local"]), ("se", ["-N", "1"]), ("se", ["-a", "--max-alns", "4"]),
+    ("pe", ["--local"])], ids=["se-local", "se-N1", "se-all4", "pe-local"])
+def test_mode_sam_on_cuda_equals_cpu(cuda, tmp_path, data, flags):
+    """The golden datasets under --local, -N 1 and -a --max-alns 4 (PE:
+    --local, whose rescue is K4 at band_w 530): --device cuda SAM equals
+    --device cpu SAM; K2 and K3 launched (and K4 for PE)."""
+    from test_torch_golden import write_golden_dataset
+
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    if data == "se":
+        write_golden_dataset(tmp_path)
+        reads = ["-U", str(tmp_path / "r.fq")]
+    else:
+        _golden_pe(tmp_path)
+        reads = ["-1", str(tmp_path / "r1.fq"), "-2", str(tmp_path / "r2.fq")]
+    build([str(tmp_path / "g.fa"), str(tmp_path / "g.npz")])
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        banded_dp.reset_launch_counts()
+        assert mapr(["-x", str(tmp_path / "g.npz"), *reads, "-S",
+                     str(tmp_path / f"{dev}.sam"), "--device", dev,
+                     "--batch", "128", *flags]) == 0
+        if dev == "cuda":
+            counts = {k: f.launches for k, f in banded_dp.KERNELS.items()}
+            need = ("K2", "K3", "K4") if data == "pe" else ("K2", "K3")
+            assert all(counts[k] > 0 for k in need), counts
+        sams[dev] = [ln for ln in open(tmp_path / f"{dev}.sam")
+                     if not ln.startswith("@PG")]
+    assert sams["cuda"] == sams["cpu"]
