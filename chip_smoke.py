@@ -113,7 +113,21 @@ failure:
    devices; a planted duplicate whose every read reports both loci,
    secondaries with FLAG 0x100); PE --local over 4 batches of phase
    16's pairs (K4 at the window-wide rescue band, band_w 530; 128 pairs
-   under both devices).
+   under both devices);
+21. map_reads' input and output options on the same index (after the
+   paired-end phases, whose pairs it reuses): the short-read run's first
+   20 480 reads rewritten as Phred+64 through --phred64 --un (gzip) --al
+   --rg-id --rg --stats --html with the counts reset just before (K2 and
+   K3 launched, a K3 call held against its plain version), its records
+   with RG:Z stripped equal to a plain Phred+33 run's in the same
+   process, the @RG line, --un/--al equal to the unmapped/mapped records,
+   the stats and the HTML report's sections; PE --un/--al/--rg-id on the
+   first 4096 pairs (/1 and /2 counts, K4 launched at the rescue);
+   --resume after 3 batches and --num-shards 2 + sam_merge, each equal to
+   the single run; the flag set on 1024 reads under --device cuda and
+   --device cpu (SAM, --un/--al bytes, non-timing stats identical); and
+   an --xprof trace of one 4096-read batch (kernel events, and whether
+   the hand kernels' names are among them).
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score and its flag entry
@@ -180,6 +194,9 @@ N_PAIRS, PE_RESCUE_SHARE, PE_CPU = 50_000, 0.05, 128
 # short-read run's reads under -N 1 and -a, the reads of those mapped
 # under both devices, and the pairs of the paired-end run under --local
 N_MODE_BATCHES, MODE_SUB, N_PE_LOCAL = 5, 1024, 4 * 4096
+# the input/output options' runs: the short-read run's first reads (and a
+# cut after 3 batches for --resume), the paired-end run's first pairs
+IO_SE, IO_CUT, IO_PE = 5 * 4096, 3 * 4096, 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
@@ -2440,6 +2457,210 @@ def phase_pe_local(torch, np):
             "rows": rows, "seconds": secs}
 
 
+def head_fastq(src, dst, n, qual_shift=0):
+    """The first ``n`` records of a FASTQ, each quality byte raised by
+    ``qual_shift`` (31: Phred+33 -> Phred+64)."""
+    with open(src) as f, open(dst, "w") as out:
+        for i in range(4 * n):
+            ln = f.readline()
+            if qual_shift and i % 4 == 3:
+                ln = "".join(chr(ord(c) + qual_shift)
+                             for c in ln.rstrip("\n")) + "\n"
+            out.write(ln)
+
+
+def fastq_names(path):
+    with (gzip.open if path.endswith(".gz") else open)(path, "rt") as f:
+        return [ln[1:].rstrip("\n") for i, ln in enumerate(f) if i % 4 == 0]
+
+
+def file_bytes(path):
+    with (gzip.open if path.endswith(".gz") else open)(path, "rb") as f:
+        return f.read()
+
+
+#: the keys of the reference's MappingStats summary that do not time
+STATS_KEYS = ("reads", "aligned", "aligned_pct", "unique", "proper_pairs",
+              "discordant", "locate_dropped", "overflowed", "escalated",
+              "mapq_hist")
+HTML_SECTIONS = ("<h2>Summary</h2>", "<h2>MAPQ histogram (aligned reads)</h2>",
+                 "<h2>Stage timing</h2>")
+
+
+def phase_io_flags(torch, np):
+    """map_reads' input and output options on the chr20-length index:
+    --phred64 --un --al --rg-id --rg --stats --html on IO_SE reads (and
+    their plain Phred+33 run), PE --un/--al/--rg-id on IO_PE pairs,
+    --resume, --num-shards/--shard-id with sam_merge, CUDA = CPU on
+    MODE_SUB reads, and an --xprof trace of one batch."""
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.tools.sam_merge import main as merge
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "chr20len")
+    npz = f"{d}/g.npz"
+    head_fastq(f"{d}/r.fq", f"{d}/io.fq", IO_SE)
+    head_fastq(f"{d}/r.fq", f"{d}/io64.fq", IO_SE, qual_shift=31)
+    se_flags = ["--phred64", "--rg-id", "rg1", "--rg", "SM:s1", "--rg",
+                "PL:ILLUMINA"]
+    # the plain and the flagged run in turns (plain, flagged, flagged,
+    # plain), so that the host clock's drift falls on both alike
+    rates = {"plain": [], "flagged": []}
+    for turn in ("plain", "flagged", "flagged", "plain"):
+        if turn == "plain":
+            _, plain, _, _ = mode_run(torch, npz, ["-U", f"{d}/io.fq"],
+                                      f"{d}/io_plain.sam", [])
+        else:
+            launches, stats, _, kept = mode_run(
+                torch, npz, ["-U", f"{d}/io64.fq"], f"{d}/io_flags.sam",
+                se_flags + ["--html", f"{d}/io.html", "--un",
+                            f"{d}/io_un.fq.gz", "--al", f"{d}/io_al.fq"],
+                wraps=((M, "banded_score_packed", "K3"),
+                       (M, "banded_directions", "K2")))
+        rates[turn].append((plain if turn == "plain" else stats
+                            )["reads_per_s"])
+    if not (launches["K2"] > 0 and launches["K3"] > 0):
+        fail(f"the flagged SE run did not launch K2 and K3: {launches}")
+    recs = sam_records(f"{d}/io_flags.sam")
+    header = [ln for ln in open(f"{d}/io_flags.sam") if ln.startswith("@")]
+    if "@RG\tID:rg1\tSM:s1\tPL:ILLUMINA\n" not in header:
+        fail(f"--rg-id/--rg: no @RG line in the header {header}")
+    if not all(ln.endswith("\tRG:Z:rg1\n") for ln in recs):
+        fail("--rg-id: a record lacks its trailing RG:Z:rg1 tag")
+    plain_recs = sam_records(f"{d}/io_plain.sam")
+    if [ln[:-len("\tRG:Z:rg1\n")] + "\n" for ln in recs] != plain_recs:
+        fail("--phred64 --rg-id: the records with RG:Z stripped differ "
+             "from the plain Phred+33 run's")
+    mapped = [ln.split("\t", 1)[0] for ln in recs
+              if not int(ln.split("\t", 2)[1]) & 4]
+    unmapped = [ln.split("\t", 1)[0] for ln in recs
+                if int(ln.split("\t", 2)[1]) & 4]
+    if (fastq_names(f"{d}/io_al.fq") != mapped
+            or fastq_names(f"{d}/io_un.fq.gz") != unmapped):
+        fail("--un/--al: the routed reads are not the unmapped/mapped SAM "
+             "records")
+    if (stats["reads"] != IO_SE or stats["aligned"] != len(mapped)
+            or sum(stats["mapq_hist"].values()) != stats["aligned"]
+            or not set(STATS_KEYS) | {"reads_per_s", "reads_per_sec",
+                                      "stage_seconds"} <= set(stats)):
+        fail(f"--stats: {stats} against {IO_SE} reads, {len(mapped)} mapped")
+    html = open(f"{d}/io.html").read()
+    if not all(h in html for h in HTML_SECTIONS):
+        fail("--html: the report lacks one of its three sections")
+    log(f"[io_flags] map_reads --device cuda --batch 4096 on {IO_SE} reads, "
+        f"in turns: plain Phred+33 "
+        f"{', '.join(f'{r:.0f}' for r in rates['plain'])} reads/s; with "
+        f"{' '.join(se_flags)} --un --al --stats --html "
+        f"{', '.join(f'{r:.0f}' for r in rates['flagged'])} reads/s (last "
+        f"run: "
+        f"reads_per_sec over the total timer "
+        f"{stats['reads_per_sec']:.0f}, stage seconds "
+        f"{stats['stage_seconds']}); records equal with RG:Z stripped, "
+        f"--un {len(unmapped)} / --al {len(mapped)} reads as the SAM's, "
+        f"stats and HTML checked; launches {launches}")
+    rows = {"K3_io": hold_call(torch, "io_flags", "K3", kept["K3"])}
+
+    # paired-end: both mates routed, /1 and /2 under mate 1's names
+    head_fastq(f"{d}/pe1.fq", f"{d}/io_pe1.fq", IO_PE)
+    head_fastq(f"{d}/pe2.fq", f"{d}/io_pe2.fq", IO_PE)
+    pe_launches, pe_stats, _, _ = mode_run(
+        torch, npz, ["-1", f"{d}/io_pe1.fq", "-2", f"{d}/io_pe2.fq"],
+        f"{d}/io_pe.sam", ["--un", f"{d}/io_pe_un.fq", "--al",
+                           f"{d}/io_pe_al.fq", "--rg-id", "rg1"])
+    pe_recs = sam_records(f"{d}/io_pe.sam")
+    routed = {(o, m): sum(n.endswith(f"/{m}") for n in fastq_names(
+        f"{d}/io_pe_{o}.fq")) for o in ("un", "al") for m in (1, 2)}
+    want = {("al", m): sum(not int(ln.split("\t", 2)[1]) & 4
+                           for ln in pe_recs[m - 1::2]) for m in (1, 2)}
+    want.update({("un", m): IO_PE - want["al", m] for m in (1, 2)})
+    log(f"[io_flags] PE --un --al --rg-id, {IO_PE} pairs: "
+        f"{pe_stats['pairs_per_s']:.0f} pairs/s, routed (outcome, mate) "
+        f"{routed}, rescued {pe_stats['rescued']}; launches {pe_launches}")
+    if routed != want or pe_launches["K4"] < 1 or not all(
+            ln.endswith("\tRG:Z:rg1\n") for ln in pe_recs):
+        fail(f"PE --un/--al: routed {routed} against the SAM's {want}, "
+             f"launches {pe_launches}")
+
+    # --resume: a run cut after 3 batches, resumed over all the reads
+    head_fastq(f"{d}/r.fq", f"{d}/io_cut.fq", IO_CUT)
+    for fq, extra in ((f"{d}/io_cut.fq", []), (f"{d}/io.fq", ["--resume"])):
+        mapr(["-x", npz, "-U", fq, "-S", f"{d}/io_resume.sam", "--device",
+              DEV, "--batch", "4096", *extra])
+    if sam_records(f"{d}/io_resume.sam") != plain_recs:
+        fail("--resume: the resumed records differ from the uninterrupted "
+             "run's")
+
+    # --num-shards/--shard-id, then sam_merge: the single run's lines
+    shards = [f"{d}/io_shard{k}.sam" for k in range(2)]
+    for k, sp in enumerate(shards):
+        mapr(["-x", npz, "-U", f"{d}/io.fq", "-S", sp, "--device", DEV,
+              "--batch", "4096", "--num-shards", "2", "--shard-id", str(k)])
+    merge(shards + ["-o", f"{d}/io_merged.sam"])
+    no_pg = lambda p: [ln for ln in open(p) if not ln.startswith("@PG")]
+    if no_pg(f"{d}/io_merged.sam") != no_pg(f"{d}/io_plain.sam"):
+        fail("--num-shards 2 + sam_merge: the merged SAM differs from the "
+             "single run's")
+    log(f"[io_flags] --resume after {IO_CUT} reads and --num-shards 2 + "
+        f"sam_merge ({len(sam_records(shards[0]))} + "
+        f"{len(sam_records(shards[1]))} records): the single run's records")
+
+    # the SE flag set under both devices: SAM, --un/--al and stats equal
+    head_fastq(f"{d}/io64.fq", f"{d}/io64_sub.fq", MODE_SUB)
+    out, secs = {}, {}
+    for dev in (DEV, "cpu"):
+        p = f"{d}/io_{dev}"
+        t0 = time.perf_counter()
+        mapr(["-x", npz, "-U", f"{d}/io64_sub.fq", "-S", f"{p}.sam",
+              "--device", dev, "--batch", str(MODE_SUB), *se_flags,
+              "--html", f"{p}.html", "--un", f"{p}_un.fq.gz", "--al",
+              f"{p}_al.fq", "--stats", f"{p}.json"])
+        secs[dev] = time.perf_counter() - t0
+        st = json.load(open(f"{p}.json"))
+        out[dev] = ([ln for ln in open(f"{p}.sam") if not
+                     ln.startswith("@PG")], file_bytes(f"{p}_un.fq.gz"),
+                    file_bytes(f"{p}_al.fq"), {k: st[k] for k in STATS_KEYS})
+    for i, what in enumerate(("SAM", "--un", "--al", "stats")):
+        if out[DEV][i] != out["cpu"][i]:
+            fail(f"io_flags: --device cpu {what} differs from --device cuda")
+    log(f"[io_flags] {MODE_SUB} reads at --batch {MODE_SUB} with the SE flag"
+        f" set: identical SAM, --un/--al bytes and stats under --device "
+        f"cuda ({secs[DEV]:.1f}s) and --device cpu ({secs['cpu']:.1f}s)")
+
+    # --xprof: a torch.profiler trace of one batch
+    head_fastq(f"{d}/r.fq", f"{d}/io_4k.fq", 4096)
+    t0 = time.perf_counter()
+    mapr(["-x", npz, "-U", f"{d}/io_4k.fq", "-S", f"{d}/io_prof.sam",
+          "--device", DEV, "--batch", "4096", "--xprof", f"{d}/xprof"])
+    prof_s = time.perf_counter() - t0
+    trace_path = f"{d}/xprof/map_reads.trace.json"
+    trace = json.load(open(trace_path))
+    kernels = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    # K2 and K3 are group_gotoh_kernel instantiations, launched through
+    # ctypes from the library the build phase made
+    hand = {k: v for k, v in kernels.items() if "group_gotoh_kernel" in k}
+    log(f"[io_flags] --xprof on one 4096-read batch ({prof_s:.1f}s, trace "
+        f"{os.path.getsize(trace_path) / 2**20:.1f} MiB): "
+        f"{sum(kernels.values())} kernel events of {len(kernels)} kernels; "
+        f"the hand kernels K2 and K3 (group_gotoh_kernel): "
+        + (f"{sum(hand.values())} events of {len(hand)} instantiations"
+           if hand else "not in the trace"))
+    if not kernels:
+        fail("--xprof: the trace holds no kernel event")
+    secs_phase = time.perf_counter() - t_phase
+    log(f"[io_flags] phase {secs_phase:.1f}s")
+    return {"launches": launches, "stats": stats, "plain_stats": plain,
+            "reads_per_s_turns": rates,
+            "pe_launches": pe_launches, "pe_stats": pe_stats,
+            "pe_routed": {f"{o}/{m}": v for (o, m), v in routed.items()},
+            "cpu_subset_s": secs["cpu"], "xprof_kernel_events":
+            sum(kernels.values()), "xprof_hand_kernels": hand,
+            "xprof_s": prof_s, "rows": rows, "seconds": secs_phase}
+
+
 def kernel_phases(torch, np, result, only=None):
     """The kernel phases (3, 4, 4b, 9, 10, K1 at bench.py's shape, 14)
     into ``result``: every kernel against its plain version, timed.  With
@@ -2621,6 +2842,8 @@ def main():
         torch.cuda.empty_cache()
         result["pe_local"] = phase_pe_local(torch, np)
         torch.cuda.empty_cache()
+        result["io_flags"] = phase_io_flags(torch, np)
+        torch.cuda.empty_cache()
         result["long"] = phase_long_reads(torch, np, genome)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -2640,7 +2863,9 @@ def main():
              "--local run": result["local"]["launches"],
              "-N 1 run": result["n1"]["launches"],
              "-a run": result["all"]["launches"],
-             "PE --local run": result["pe_local"]["launches"]}
+             "PE --local run": result["pe_local"]["launches"],
+             "flagged SE run": result["io_flags"]["launches"],
+             "flagged PE run": result["io_flags"]["pe_launches"]}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # (name, source, replaces, the path whose run launches it)

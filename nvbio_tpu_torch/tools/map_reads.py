@@ -17,17 +17,42 @@ reads, with the reference's flags and defaults (Bowtie2 names:
     python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -1 r1.fq \\
         -2 r2.fq -S out.sam --device cuda
 
+    python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -U reads.fq \\
+        -S out.sam --device cuda --phred64 --un un.fq.gz --al al.fq \\
+        --rg-id rg1 --rg SM:s1 --stats s.json --html report.html
+
 As in the reference, -a applies to -U input only: with -1/-2 it is
-taken and has no effect.
+taken and has no effect.  The input and output options are the
+reference's too: --un/--al (FASTQ(.gz) of the reads that fail to align
+or align; paired-end mates go into one file with /1 and /2 suffixes),
+--rg-id/--rg (an @RG header line and an RG:Z tag on every record),
+--phred64/--solexa-quals (input qualities; --un/--al write Phred+33),
+--resume (skip the records already in a plain .sam and append),
+--num-shards/--shard-id (map one record-aligned byte range of a plain
+FASTQ; join the shards' SAM with sam_merge), --stats/--html (the
+reference's MappingStats JSON and HTML report) and --xprof DIR (a
+torch.profiler Chrome trace of the mapping loop).
+
+--stats writes the reference's summary, whose reads_per_sec divides the
+reads by the "total" timer (the mapping loop alone), plus the port's
+keys: device, load_s (index load), map_s (from opening the output to
+closing it) and reads_per_s (reads / map_s); with -1/-2 also pairs,
+pairs_per_s (pairs / map_s), rescued and rescue_dropped.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
 import json
 import math
 import sys
 import time
+
+import numpy as np
+
+from ..basic.alphabet import dna_to_char
 
 
 def _parse(argv):
@@ -115,22 +140,58 @@ def _parse(argv):
     p.add_argument("--extend-frac", type=float, default=None,
                    help="extension budget as a fraction of the "
                    "candidate slot matrix (default 0.25)")
+    p.add_argument("--un", metavar="FQ",
+                   help="write reads that fail to align to this "
+                   "FASTQ(.gz) (bowtie2 --un)")
+    p.add_argument("--al", metavar="FQ",
+                   help="write reads that align at least once to this "
+                   "FASTQ(.gz) (bowtie2 --al)")
+    p.add_argument("--rg-id", metavar="ID",
+                   help="read group ID: adds @RG SAM header + RG:Z "
+                   "tag on every record (bowtie2 --rg-id)")
+    p.add_argument("--rg", action="append", default=[],
+                   metavar="FIELD:VALUE",
+                   help="add FIELD:VALUE to the @RG line (repeatable; "
+                   "needs --rg-id; bowtie2 --rg)")
+    p.add_argument("--phred64", action="store_true",
+                   help="input qualities are Phred+64")
+    p.add_argument("--solexa-quals", action="store_true",
+                   help="input qualities are Solexa+64 (converted to "
+                   "Phred)")
     p.add_argument("--stats", metavar="JSON",
-                   help="write run counters and timings here")
-    # reference flags outside this slice of the port
+                   help="write the run's MappingStats JSON here, with "
+                   "the port's device, load_s, map_s and reads_per_s")
+    p.add_argument("--html", help="write HTML run report here")
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="total input shards (multi-host: one per host)")
+    p.add_argument("--shard-id", type=int, default=0,
+                   help="this process's shard index")
+    p.add_argument("--resume", action="store_true",
+                   help="restart an interrupted run: skip reads already "
+                   "present in the output SAM and append (plain .sam "
+                   "only)")
+    p.add_argument("--xprof", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the "
+                   "mapping loop into DIR")
+    # reference flags of sharded indexes, not ported yet
     p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--xprof", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--fm2-mode", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     unported = [
         (args.mesh, "--mesh"),
-        (args.xprof, "--xprof"),
+        (args.fm2_mode, "--fm2-mode"),
     ]
     for used, flag in unported:
         if used:
             p.error(f"{flag} is not ported to nvbio_tpu_torch yet; use "
                     "nvbio_tpu.tools.map_reads")
+    if args.resume and (args.sam.endswith(".gz")
+                        or args.sam.endswith(".bam") or args.m1):
+        p.error("--resume supports unpaired plain .sam output")
     if not args.U and not (args.m1 and args.m2):
         p.error("need -U or -1/-2")
+    if args.rg and not args.rg_id:
+        p.error("--rg needs --rg-id")
     if args.max_alns < 1:
         p.error("--max-alns wants a positive count")
     return p, args
@@ -160,19 +221,20 @@ def main(argv=None):
     p, args = _parse(argv)
     import os
 
-    import numpy as np
     import torch
 
     from ..io.bam import BamWriter
     from ..io.fastq import FastqBatchReader
     from ..io.sam import SamWriter
     from ..io.sequence import ReadBatchIterator, open_read_iter
+    from ..parallel.distributed import read_fastq_range, shard_fastq
+    from ..utils.stats import MappingStats
 
     from ..alignment.types import GotohScheme
     from ..device import resolve_device
     from ..fmindex.build import build_kmer_lut
     from ..io.index_file import load_index
-    from ..models.mapper import Mapper
+    from ..models.mapper import Mapper, MapResult
     from ..models.paired import PairedMapper
     from ..models.params import MapperParams, eval_simple_func
     from ..strings.string_set import pack_reads
@@ -257,84 +319,204 @@ def main(argv=None):
         torch.cuda.synchronize(device)
     t_load = time.perf_counter() - t0
 
+    qual_enc = ("solexa64" if args.solexa_quals
+                else "phred64" if args.phred64 else "phred33")
+    stats = MappingStats()
+    n_done = 0
+    if args.resume and os.path.exists(args.sam):
+        with open(args.sam) as f:
+            n_done = sum(1 for ln in f if not ln.startswith("@"))
+        print(f"[map_reads] resume: {n_done} records already written",
+              file=sys.stderr)
+
+    def batches(path):
+        """Input batches, restricted to this process's shard of the
+        input with --num-shards > 1."""
+        if args.num_shards <= 1:
+            yield from ReadBatchIterator(path, args.batch, qual_enc=qual_enc)
+            return
+        start, end = shard_fastq(path, args.num_shards)[args.shard_id]
+        names, seqs, quals = read_fastq_range(path, start, end)
+        for i in range(0, len(names), args.batch):
+            sl = slice(i, i + args.batch)
+            yield names[sl], seqs[sl], quals[sl]
+
     def packed():
-        for names, seqs, quals in ReadBatchIterator(args.U, args.batch):
+        skip = n_done
+        for names, seqs, quals in batches(args.U):
+            if skip >= len(names):  # whole batch already mapped
+                skip -= len(names)
+                continue
+            if skip:
+                names, seqs, quals = names[skip:], seqs[skip:], quals[skip:]
+                skip = 0
             reads, lens, qmat, _ = pack_reads(seqs, quals,
                                               max_len=args.max_read_len)
             yield names, reads, lens, qmat
 
     def packed_pe():
-        it1 = FastqBatchReader(args.m1, args.batch)
-        it2 = FastqBatchReader(args.m2, args.batch)
+        it1 = FastqBatchReader(args.m1, args.batch, qual_enc=qual_enc)
+        it2 = FastqBatchReader(args.m2, args.batch, qual_enc=qual_enc)
         for (n1, s1, q1), (_, s2, q2) in zip(it1, it2):
             r1, l1, qm1, _ = pack_reads(s1, q1, max_len=args.max_read_len)
             r2, l2, qm2, _ = pack_reads(s2, q2, max_len=args.max_read_len)
             yield n1, r1, l1, qm1, r2, l2, qm2
 
-    n_reads = n_aligned = n_pairs = n_proper = n_disc = 0
+    rg_line = None
+    if args.rg_id:
+        rg_line = "@RG\tID:" + args.rg_id + "".join(
+            "\t" + f for f in args.rg)
+    n_pairs = 0
     t1 = time.perf_counter()
-    # BAM for a .bam path, as the reference chooses; SAM (.gz ok) else
-    writer_cls = BamWriter if args.sam.endswith(".bam") else SamWriter
-    with writer_cls(args.sam, meta["contig_names"], meta["contig_lens"],
-                    cmdline=" ".join(argv if argv is not None
-                                     else sys.argv[1:])) as writer:
-        if paired:
-            for (names, r1, l1, qm1, r2, l2, qm2, res1, res2,
-                 info) in mapper.map_pairs_stream(packed_pe()):
-                n_pairs += len(info)
-                n_reads += len(res1) + len(res2)
-                n_aligned += sum(r.aligned for r in res1 + res2)
-                n_proper += sum(i["proper"] for i in info)
-                n_disc += sum(i["discordant"] for i in info)
-                for rec in mapper.to_sam_records_pe(
-                        names, r1, l1, qm1, r2, l2, qm2, res1, res2, info):
-                    writer.write(rec)
-        elif args.all_hits:
-            for names, reads, lens, qmat in packed():
-                all_res = mapper.map_reads_all(reads, lens, qmat,
-                                               max_alns=args.max_alns)
-                n_reads += len(all_res)
-                n_aligned += sum(bool(a) for a in all_res)
-                for rec in mapper.to_sam_records_all(names, reads, lens,
-                                                     qmat, all_res):
-                    writer.write(rec)
-        else:
-            for names, reads, lens, qmat, results in mapper.map_stream(
-                    packed()):
-                n_reads += len(results)
-                n_aligned += sum(r.aligned for r in results)
-                for rec in mapper.to_sam_records(names, reads, lens, qmat,
-                                                 results):
-                    writer.write(rec)
+    with contextlib.ExitStack() as stack:
+        # BAM for a .bam path, as the reference chooses; SAM (.gz ok) else
+        writer_cls = BamWriter if args.sam.endswith(".bam") else SamWriter
+        writer = stack.enter_context(writer_cls(
+            args.sam, meta["contig_names"], meta["contig_lens"],
+            cmdline=" ".join(argv if argv is not None else sys.argv[1:]),
+            rg_line=rg_line, **({"append": True} if n_done else {})))
+        route = _FastqRoute(
+            *(stack.enter_context(_open_fq(path)) if path else None
+              for path in (args.un, args.al)))
+        if args.xprof:
+            prof = stack.enter_context(_profiler(device))
+
+        def write(recs):
+            for rec in recs:
+                if args.rg_id:  # after every other tag, as bowtie2
+                    rec.tags.append(("RG", "Z", args.rg_id))
+                writer.write(rec)
+
+        with stats.timer("total"):
+            if paired:
+                with stats.timer("compute"):
+                    for (names, r1, l1, qm1, r2, l2, qm2, res1, res2,
+                         info) in mapper.map_pairs_stream(packed_pe()):
+                        n_pairs += len(info)
+                        stats.observe(res1)
+                        stats.observe(res2)
+                        stats.proper_pairs += sum(i["proper"] for i in info)
+                        stats.discordant += sum(i["discordant"]
+                                                for i in info)
+                        # mate 2 takes mate 1's names, as in the reference
+                        route(names, r1, l1, qm1,
+                              [r.aligned for r in res1], "/1")
+                        route(names, r2, l2, qm2,
+                              [r.aligned for r in res2], "/2")
+                        with stats.timer("output"):
+                            write(mapper.to_sam_records_pe(
+                                names, r1, l1, qm1, r2, l2, qm2, res1, res2,
+                                info))
+            elif args.all_hits:
+                for names, reads, lens, qmat in packed():
+                    with stats.timer("compute"):
+                        all_res = mapper.map_reads_all(
+                            reads, lens, qmat, max_alns=args.max_alns)
+                    stats.observe([a[0] if a else MapResult(aligned=False)
+                                   for a in all_res])
+                    route(names, reads, lens, qmat,
+                          [bool(a and a[0].aligned) for a in all_res])
+                    with stats.timer("output"):
+                        write(mapper.to_sam_records_all(names, reads, lens,
+                                                        qmat, all_res))
+            else:
+                with stats.timer("compute"):
+                    for names, reads, lens, qmat, results in \
+                            mapper.map_stream(packed()):
+                        stats.observe(results)
+                        route(names, reads, lens, qmat,
+                              [r.aligned for r in results])
+                        with stats.timer("output"):
+                            write(mapper.to_sam_records(names, reads, lens,
+                                                        qmat, results))
     t_map = time.perf_counter() - t1
-    stats = {
+    if args.xprof:
+        os.makedirs(args.xprof, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.xprof,
+                                              "map_reads.trace.json"))
+    stats.locate_dropped = mapper.locate_dropped
+    stats.escalated = mapper.escalated
+    stats.overflowed = mapper.overflowed
+    if stats.locate_dropped:
+        print(f"[map_reads] locate budget overflow: "
+              f"{stats.locate_dropped} candidate slots dropped "
+              "(raise --locate-frac toward 1.0 to locate everything)",
+              file=sys.stderr)
+    if stats.escalated:
+        print(f"[map_reads] effort escalation: {stats.overflowed} reads "
+              f"overflowed round-1 budgets; {stats.escalated} re-maps "
+              f"across {mapper.params.max_effort - 1} escalation "
+              "round(s)", file=sys.stderr)
+    report = stats.summary()
+    stats.report(file=sys.stderr)
+    report.update({
         "device": str(device),
-        "reads": n_reads,
-        "aligned": n_aligned,
         "load_s": t_load,
         "map_s": t_map,
-        "reads_per_s": n_reads / t_map if t_map > 0 else math.nan,
-        "locate_dropped": mapper.locate_dropped,
-        "overflowed": mapper.overflowed,
-        "escalated": mapper.escalated,
-    }
+        "reads_per_s": stats.reads / t_map if t_map > 0 else math.nan,
+    })
     if paired:
-        stats.update({
+        report.update({
             "pairs": n_pairs,
             "pairs_per_s": n_pairs / t_map if t_map > 0 else math.nan,
-            "proper_pairs": n_proper,
-            "discordant": n_disc,
             "rescued": mapper.rescued,
             "rescue_dropped": mapper.rescue_dropped,
         })
-    print(f"[map_reads] {n_reads} reads ({n_aligned} aligned"
-          + (f"; {n_pairs} pairs, {n_proper} proper" if paired else "")
+    print(f"[map_reads] {stats.reads} reads ({stats.aligned} aligned"
+          + (f"; {n_pairs} pairs, {stats.proper_pairs} proper"
+             if paired else "")
           + f") on {device} in {t_map:.2f}s after {t_load:.2f}s index load",
           file=sys.stderr)
     if args.stats:
         with open(args.stats, "w") as f:
-            json.dump(stats, f, indent=1)
+            json.dump(report, f, indent=2)
+    if args.html:
+        with open(args.html, "w") as f:
+            f.write(stats.html(title=f"map_reads: {args.U or args.m1}"))
     return 0
+
+
+def _open_fq(path):
+    return gzip.open(path, "wt") if path.endswith(".gz") else open(path, "w")
+
+
+class _FastqRoute:
+    """--un / --al: each read to the FASTQ of its outcome (bowtie2
+    --un/--al), its sequence from the packed codes and its quality as
+    Phred+33 whatever the input's encoding.  A batch's symbols and
+    qualities are converted in one pass and each file gets one write."""
+
+    def __init__(self, un_f, al_f):
+        self.un_f, self.al_f = un_f, al_f
+
+    def __call__(self, names, reads, lens, qmat, aligned, suffix=""):
+        if self.un_f is None and self.al_f is None:
+            return
+        reads, qmat = np.asarray(reads), np.asarray(qmat)
+        lens = np.minimum(np.asarray(lens, np.int64), reads.shape[1])
+        valid = np.arange(reads.shape[1]) < lens[:, None]
+        seq = dna_to_char(reads[valid].astype(np.uint8)).tobytes().decode()
+        qual = (qmat[valid].astype(np.uint8) + 33).clip(33, 126).astype(
+            np.uint8).tobytes().decode()
+        ends = np.cumsum(lens).tolist()
+        out = {False: [], True: []}
+        for i, (nm, a, b) in enumerate(zip(names, [0] + ends, ends)):
+            out[bool(aligned[i])].append(
+                f"@{nm}{suffix}\n{seq[a:b]}\n+\n{qual[a:b]}\n")
+        for f, recs in ((self.un_f, out[False]), (self.al_f, out[True])):
+            if f is not None and recs:
+                f.write("".join(recs))
+
+
+def _profiler(device):
+    """torch.profiler over the mapping loop: CPU activity, and CUDA
+    activity on a CUDA device."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """The port's copies of the host code (``nvbio_tpu_torch.basic``,
-``.io``, ``.native``, ``.utils``) give the originals' outputs on seeded
-inputs.  The copies exist so that the port imports nothing of
+``.io``, ``.native``, ``.utils``, ``.parallel``) give the originals'
+outputs on seeded inputs.  The copies exist so that the port imports nothing of
 ``nvbio_tpu``; this holds them to the reference they were copied from."""
+
+import gzip
 
 import numpy as np
 import pytest
@@ -10,11 +12,17 @@ import nvbio_tpu.basic.packed as ref_packed
 import nvbio_tpu.io.genome as ref_genome
 import nvbio_tpu.io.sam as ref_sam
 import nvbio_tpu.native as ref_native
+import nvbio_tpu.parallel.distributed as ref_dist
+import nvbio_tpu.utils.html as ref_html
+import nvbio_tpu.utils.stats as ref_stats
 import nvbio_tpu.utils.simulate as ref_simulate
 import nvbio_tpu_torch.basic.packed as port_packed
 import nvbio_tpu_torch.io.genome as port_genome
 import nvbio_tpu_torch.io.sam as port_sam
 import nvbio_tpu_torch.native as port_native
+import nvbio_tpu_torch.parallel.distributed as port_dist
+import nvbio_tpu_torch.utils.html as port_html
+import nvbio_tpu_torch.utils.stats as port_stats
 import nvbio_tpu_torch.utils.simulate as port_simulate
 
 
@@ -117,3 +125,114 @@ def test_sam_writer_copy_matches(tmp_path):
 
     assert (write(port_sam, tmp_path / "port.sam")
             == write(ref_sam, tmp_path / "ref.sam"))
+
+
+def _map_results(cls, seed, n=500):
+    """Seeded MapResults: aligned or not, with or without a second-best,
+    MAPQ 0..60."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        aligned = bool(rng.random() < 0.9)
+        out.append(cls(aligned=aligned, mapq=int(rng.integers(0, 61)),
+                       second=int(rng.integers(-40, 0))
+                       if rng.random() < 0.3 else None))
+    return out
+
+
+def _mapping_stats(stats_mod, result_cls):
+    st = stats_mod.MappingStats()
+    for k in range(3):
+        st.observe(_map_results(result_cls, 10 + k))
+    st.proper_pairs, st.discordant = 700, 12
+    st.locate_dropped, st.overflowed, st.escalated = 5, 3, 6
+    for name, total in (("total", 2.5), ("compute", 2.0), ("output", 0.25)):
+        with st.timer(name):  # a real Timer, its total then set by hand
+            pass
+        st.timer(name).total = total
+    return st
+
+
+def test_mapping_stats_copy_matches():
+    """MappingStats over seeded lists of the port's MapResult and of the
+    reference's: summary() equal without its timing keys, report() and
+    html() equal with the timers' totals set by hand."""
+    from nvbio_tpu.models.mapper import MapResult as RefResult
+    from nvbio_tpu_torch.models.mapper import MapResult as PortResult
+
+    got = _mapping_stats(port_stats, PortResult)
+    want = _mapping_stats(ref_stats, RefResult)
+    gs, ws = got.summary(), want.summary()
+    for k in ("reads_per_sec", "stage_seconds"):
+        gs.pop(k), ws.pop(k)
+    assert gs == ws and gs["reads"] == 1500 and len(gs["mapq_hist"]) == 5
+    assert got.report() == want.report()
+    assert got.html(title="t & <u>") == want.html(title="t & <u>")
+    assert got.elapsed == want.elapsed == 4.75
+    assert got.timer("total").count == 1
+
+
+def test_html_copy_matches():
+    rows = [("a", 1), ("<b>", 2.5), ("c", "x&y")]
+    bars = [("q0", 3), ("q10", 0), ("q20", 7.25)]
+    for mod_args in ((rows,), (rows, ("k", "v"))):
+        assert port_html.table(*mod_args) == ref_html.table(*mod_args)
+    assert port_html.bar_chart(bars, unit=" s") == ref_html.bar_chart(
+        bars, unit=" s")
+    assert port_html.bar_chart([]) == ref_html.bar_chart([])
+    sections = [("S", port_html.table(rows))]
+    assert port_html.page("T", sections) == ref_html.page("T", sections)
+
+
+@pytest.fixture(scope="module")
+def shard_fastqs(tmp_path_factory):
+    """tests/test_distributed.py:22-63's inputs: 101 simulated reads, and
+    40 records whose quality lines start with '@'."""
+    d = tmp_path_factory.mktemp("dist")
+    genome = ref_simulate.random_genome(60_000, seed=31)
+    sim = ref_simulate.simulate_reads(genome, 101, 100, seed=32)
+    from nvbio_tpu.io.fastq import write_fastq
+
+    write_fastq(str(d / "reads.fq"), [
+        (f"read_{i}", sim["seqs"][i].astype(np.uint8), sim["quals"][i])
+        for i in range(101)])
+    with open(d / "tricky.fq", "w") as f:
+        for i in range(40):
+            f.write(f"@r{i}\nACGTACGTAC\n+\n@@@@@@@@@@\n")
+    return d
+
+
+@pytest.mark.parametrize("name,n_shards", [
+    ("reads.fq", 2), ("reads.fq", 3), ("reads.fq", 7), ("tricky.fq", 2),
+    ("tricky.fq", 3), ("tricky.fq", 5)])
+def test_shard_fastq_copy_matches(shard_fastqs, name, n_shards):
+    path = str(shard_fastqs / name)
+    ranges = port_dist.shard_fastq(path, n_shards)
+    _equal(ranges, ref_dist.shard_fastq(path, n_shards))
+    for s, e in ranges:
+        _equal(port_dist.read_fastq_range(path, s, e),
+               ref_dist.read_fastq_range(path, s, e))
+
+
+@pytest.mark.parametrize("ext", [".sam", ".sam.gz"])
+def test_merge_sam_shards_copy_matches(tmp_path, ext):
+    rng = np.random.default_rng(9)
+    shards = []
+    for k in range(3):
+        sp = tmp_path / f"s{k}{ext}"
+        lines = ["@HD\tVN:1.6\n", f"@PG\tID:x\tCL:shard {k}\n"] + [
+            f"r{k}_{i}\t0\tc\t{int(rng.integers(1, 999))}\t40\t10M\n"
+            for i in range(int(rng.integers(0, 6)))]
+        with (gzip.open(sp, "wt") if ext.endswith(".gz") else open(sp, "w")
+              ) as f:
+            f.writelines(lines)
+        shards.append(str(sp))
+
+    def merged(mod, tag):
+        out = tmp_path / f"{tag}{ext}"
+        n = mod.merge_sam_shards(shards, str(out))
+        with (gzip.open(out, "rb") if ext.endswith(".gz") else open(out, "rb")
+              ) as f:
+            return n, f.read()
+
+    assert merged(port_dist, "port") == merged(ref_dist, "ref")

@@ -2,9 +2,11 @@
 CPU, exact equality throughout: map_reads --device cpu SAM equal to
 nvbio_tpu.tools.map_reads --cpu SAM (@PG masked) for single-end --local,
 -N 1 and -a --max-alns 4 on the golden SE dataset and for paired-end
---local on the golden PE dataset; pe_map_batch in LOCAL mode, field by
-field, on pairs that need the window-wide LOCAL rescue; and the port's
-counterparts of tests/test_mapper.py's planted -N 1 and -a checks."""
+--local and -N 1 on the golden PE dataset; pe_map_batch in LOCAL mode,
+field by field, on pairs that need the window-wide LOCAL rescue; the
+port's counterparts of tests/test_mapper.py's planted -N 1 and -a checks;
+and the effort-escalation ladder of tests/test_escalation_ladder.py at
+max_effort 2 and 3."""
 
 import numpy as np
 import pytest
@@ -53,11 +55,13 @@ def _sam(path):
 
 
 MODES = [("se", ["--local"]), ("se", ["-N", "1"]),
-         ("se", ["-a", "--max-alns", "4"]), ("pe", ["--local"])]
+         ("se", ["-a", "--max-alns", "4"]), ("pe", ["--local"]),
+         ("pe", ["-N", "1"])]
 
 
 @pytest.mark.parametrize("data,flags", MODES,
-                         ids=["se-local", "se-N1", "se-all4", "pe-local"])
+                         ids=["se-local", "se-N1", "se-all4", "pe-local",
+                              "pe-N1"])
 def test_mode_sam_equals_reference(golden, data, flags):
     from nvbio_tpu.tools.map_reads import main as ref_map
     from nvbio_tpu_torch.tools.map_reads import main as port_map
@@ -216,3 +220,29 @@ def test_max_alns_must_be_positive(capsys):
         port_map(["-x", "x.npz", "-U", "r.fq", "-S", "o.sam", "-a",
                   "--max-alns", "0", "--device", "cpu"])
     assert "--max-alns" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("max_effort", [2, 3])
+def test_escalation_ladder_matches_jax(max_effort):
+    """tests/test_escalation_ladder.py:34's repeat genome (a 200 bp
+    element in 100 copies) at max_range 4: max_effort 2 loses the reads
+    and max_effort 3 recovers them; the MapResults, escalated and
+    overflowed equal the reference's."""
+    from test_escalation_ladder import _repeat_genome
+
+    genome, element = _repeat_genome(copies=100)
+    reads = [element[40:140].copy() for _ in range(4)]
+    packed, lens, quals, _ = pack_reads(
+        reads, [np.full(100, 35, np.uint8)] * 4, max_len=128)
+    base = dict(batch_size=4, sa_sample=8, max_candidates=8, max_range=4,
+                max_effort=max_effort)
+    fm, ssa, tfm, tssa, tg = _mappers(genome, 8)
+    m = Mapper(tfm, tssa, tg, params=MapperParams(**base))
+    got = m.map_reads(packed, lens, quals)
+    jm = JaxMapper(fm, ssa, genome, params=JaxParams(**base),
+                   use_pallas=False)
+    want = jm.map_reads(packed, lens, quals.astype(np.int32))
+    assert _fields(got) == _fields(want)
+    assert (m.escalated, m.overflowed) == (jm.escalated, jm.overflowed)
+    assert all(r.aligned == (max_effort == 3) for r in got)
+    assert m.escalated == 4 * (max_effort - 1) and m.overflowed == 4

@@ -2,8 +2,9 @@
 none) and keeps its own copies of the host code it needs: in a
 subprocess whose import system refuses ``jax`` and every ``nvbio_tpu``
 module, import every ``nvbio_tpu_torch`` module, build an index and map
-a tiny single-end and a tiny paired-end dataset on the CPU.  Also: the CLI's device and unported-flag
-errors."""
+a tiny single-end dataset (with --un, --al, --rg-id, --stats and --html)
+and a tiny paired-end dataset on the CPU.  Also: the CLI's device and
+unported-flag errors."""
 
 import os
 import subprocess
@@ -49,12 +50,20 @@ GUARDED = textwrap.dedent("""
                                  sim["quals"][i]) for i in range(40)])
     assert build([f"{out}/g.fa", f"{out}/g.npz", "--lut-k", "8"]) == 0
     assert mapr(["-x", f"{out}/g.npz", "-U", f"{out}/r.fq", "-S",
-                 f"{out}/o.sam", "--device", "cpu", "--batch", "32"]) == 0
+                 f"{out}/o.sam", "--device", "cpu", "--batch", "32",
+                 "--un", f"{out}/un.fq.gz", "--al", f"{out}/al.fq",
+                 "--rg-id", "g", "--stats", f"{out}/s.json", "--html",
+                 f"{out}/r.html"]) == 0
     assert not any(m in ("jax", "nvbio_tpu")
                    or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
     recs = [l for l in open(f"{out}/o.sam") if not l.startswith("@")]
     print("records", len(recs),
           "aligned", sum(l.split("\\t")[1] != "4" for l in recs))
+    import json
+    assert json.load(open(f"{out}/s.json"))["reads"] == 40
+    assert len(open(f"{out}/al.fq").read().split("\\n")) // 4 == sum(
+        l.split("\\t")[1] != "4" for l in recs)
+    assert all(l.endswith("\\tRG:Z:g\\n") for l in recs)
 
     from nvbio_tpu_torch.utils.simulate import simulate_pairs
     pe = simulate_pairs(g, 20, 80, insert_mean=250, insert_sd=20, seed=4)
@@ -117,8 +126,9 @@ def test_map_reads_cuda_raises_without_cuda(tmp_path):
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "on"], ["--xprof", "d"]],
-                         ids=["mesh", "xprof"])
+@pytest.mark.parametrize("flags", [["--mesh", "on"],
+                                   ["--fm2-mode", "resident"]],
+                         ids=["mesh", "fm2-mode"])
 def test_map_reads_rejects_unported_flags(tmp_path, flags, capsys):
     from nvbio_tpu_torch.tools.map_reads import main as mapr
 
