@@ -127,7 +127,20 @@ failure:
    the single run; the flag set on 1024 reads under --device cuda and
    --device cpu (SAM, --un/--al bytes, non-timing stats identical); and
    an --xprof trace of one 4096-read batch (kernel events, and whether
-   the hand kernels' names are among them).
+   the hand kernels' names are among them);
+22. the sharded index on the same genome: build_index --shard-bp
+   16777216 --shard-overlap 1024 --procs 4 (4 shards), the device bytes
+   of the loaded sharded and unsharded mappers, then map_reads on the
+   manifest over the short-read run's 100 000 reads and the paired-end
+   run's first 16 384 pairs, each with the counts reset just before (K3
+   launched once a shard and batch, K2 once a batch, K4 at the rescue):
+   no read differs from the unsharded run in (aligned, POS, strand,
+   CIGAR, AS, MD, NM), each pair that differs is proper with a summed AS
+   no lower (the rescue-anchor divergence of the sharded PE mapper),
+   with the unsharded index's pairs/s on the same pairs before and
+   after; a per-stage breakdown of one sharded SE batch; CUDA SAM = CPU
+   SAM on 1 024 reads and 256 pairs; K3, K2 and K4 held against their
+   plain versions on calls the sharded runs made.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score and its flag entry
@@ -197,6 +210,13 @@ N_MODE_BATCHES, MODE_SUB, N_PE_LOCAL = 5, 1024, 4 * 4096
 # the input/output options' runs: the short-read run's first reads (and a
 # cut after 3 batches for --resume), the paired-end run's first pairs
 IO_SE, IO_CUT, IO_PE = 5 * 4096, 3 * 4096, 4096
+# the sharded run: build_index --shard-bp/--shard-overlap/--procs on the
+# chr20-length genome (4 shards), the paired-end run's first pairs, and
+# the reads and pairs mapped under both devices
+SHARD_BP, SHARD_OVERLAP, SHARD_PROCS = 16_777_216, 1024, 4
+N_SHARD_PAIRS, SHARD_CPU_READS, SHARD_CPU_PAIRS = 4 * 4096, 1024, 256
+# the one-device sharded mapper whatever the host's device count
+MESH_OFF = ["--mesh", "off"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
@@ -2661,6 +2681,251 @@ def phase_io_flags(torch, np):
             "xprof_s": prof_s, "rows": rows, "seconds": secs_phase}
 
 
+def se_fields(rec):
+    """(aligned, RNAME, POS, strand, CIGAR, AS, MD, NM) of a SAM record:
+    the fields a sharded run must share with the unsharded one."""
+    f = rec.rstrip("\n").split("\t")
+    flag = int(f[1])
+    if flag & 4:
+        return (False,)
+    tags = {t[:2]: t[5:] for t in f[11:]}
+    return (True, f[2], int(f[3]), flag & 16, f[5], tags["AS"], tags["MD"],
+            tags["NM"])
+
+
+def pair_score(recs):
+    """Summed AS of a pair's aligned mates (None with a mate unaligned)."""
+    out = 0
+    for rec in recs:
+        f = rec.split("\t")
+        if int(f[1]) & 4:
+            return None
+        out += int({t[:2]: t[5:] for t in f[11:]}["AS"])
+    return out
+
+
+def device_bytes(torch, make):
+    """Device bytes held by what ``make()`` returns, freed after."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    held = make()
+    torch.cuda.synchronize()
+    nbytes = torch.cuda.memory_allocated() - m0
+    del held
+    torch.cuda.empty_cache()
+    return nbytes
+
+
+def sharded_stage_breakdown(torch, np, m, reads_fq):
+    """Host-clock ms per stage (synchronised) of a ShardedMapper ``m``'s
+    full batches through map_stream and to_sam_records, as the CLI runs
+    them; the median of batches 2-4.  Wrappers time the upload, the
+    strands and seeds, each shard's candidate stage, the cross-shard
+    top-2 and the winner-shard traceback (escalation rounds included);
+    the host finish is what is left of the batch."""
+    import itertools
+
+    from nvbio_tpu_torch.io.sequence import ReadBatchIterator
+    from nvbio_tpu_torch.models import sharded_mapper as SM
+    from nvbio_tpu_torch.strings.string_set import pack_reads
+
+    batches = []
+    for names, seqs, quals in itertools.islice(
+            ReadBatchIterator(reads_fq, m.params.batch_size), 4):
+        reads, lens, qmat, _ = pack_reads(seqs, quals)
+        batches.append((names, reads, lens, qmat))
+    t = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            key = name(a) if callable(name) else name
+            t[key] = t.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def shard_of(a):
+        return "candidate stage, shard " + str(
+            [st is a[0] for st in m.shard_state].index(True))
+
+    wrap = {"stage_reads": timed("strands+seeds", SM.stage_reads),
+            "_shard_cands": timed(shard_of, SM._shard_cands),
+            "_sharded_top2": timed("top2 across shards", SM._sharded_top2),
+            "_sharded_walk": timed("traceback (K2)+walk", SM._sharded_walk)}
+    saved = {name: getattr(SM, name) for name in wrap}
+    m._upload = timed("upload", m._upload)
+    rows = []
+    try:
+        for name, fn in wrap.items():
+            setattr(SM, name, fn)
+        stream = m.map_stream(iter(batches))
+        for _ in batches:
+            t.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            names, seqs, lens, quals, results = next(stream)
+            recs = m.to_sam_records(names, seqs, lens, quals, results)
+            total = (time.perf_counter() - t0) * 1e3
+            assert len(recs) == len(names)
+            rows.append(dict(t, **{
+                "host finish+SAM records": total - sum(t.values()),
+                "batch": total}))
+    finally:
+        for name, fn in saved.items():
+            setattr(SM, name, fn)
+        del m._upload
+    rows = rows[1:] or rows  # the first batch warms the allocator
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
+def phase_sharded(torch, np):
+    """The sharded index on the chr20-length genome: build_index
+    --shard-bp 16777216 --shard-overlap 1024 --procs 4 (4 shards); the
+    short-read run's 100 000 reads and the paired-end run's first 4
+    batches of pairs through map_reads on the manifest, each with the
+    counts reset just before; every read equal to the unsharded run in
+    (aligned, POS, strand, CIGAR, AS, MD, NM), every differing pair the
+    documented anchor divergence (proper, its score no lower); CUDA SAM =
+    CPU SAM on 1 024 reads and 256 pairs; K3, K2 and K4 held against
+    their plain versions on sharded calls; the device bytes of the loaded
+    mappers."""
+    from nvbio_tpu_torch.fmindex.sharded import load_sharded_index
+    from nvbio_tpu_torch.io.index_file import load_index
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.models import paired as P
+    from nvbio_tpu_torch.models.params import MapperParams
+    from nvbio_tpu_torch.models.sharded_mapper import ShardedMapper
+    from nvbio_tpu_torch.tools.build_index import main as build
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "chr20len")
+    idx = f"{d}/sh.manifest.json"
+    t0 = time.perf_counter()
+    build([f"{d}/g.fa", f"{d}/sh", "--sa-sample", "4", "--lut-k", "11",
+           "--shard-bp", str(SHARD_BP), "--shard-overlap",
+           str(SHARD_OVERLAP), "--procs", str(SHARD_PROCS)])
+    build_s = time.perf_counter() - t0
+    spans = [(e["start"], e["length"])
+             for e in json.load(open(idx))["shards"]]
+    if len(spans) != 4:
+        fail(f"--shard-bp {SHARD_BP} made {len(spans)} shards: {spans}")
+    params = MapperParams(sa_sample=4, lut_k=11)
+
+    def unsharded():
+        fm, ssa, g, meta = load_index(f"{d}/g.npz", device=DEV)
+        return M.Mapper(fm, ssa, g, params=params, lut=meta.get("lut"))
+
+    held = device_bytes(torch, lambda: ShardedMapper(
+        *load_sharded_index(f"{d}/sh", device=DEV)[:2], params=params))
+    held_1 = device_bytes(torch, unsharded)
+    log(f"[sharded] build_index --shard-bp {SHARD_BP} --shard-overlap "
+        f"{SHARD_OVERLAP} --procs {SHARD_PROCS}: {len(spans)} shards "
+        f"(start, length) {spans} in {build_s:.1f}s; the loaded mapper "
+        f"holds {held / 2**20:.1f} MiB on the card (unsharded "
+        f"{held_1 / 2**20:.1f} MiB)")
+
+    launches, stats, calls, kept = mode_run(
+        torch, idx, ["-U", f"{d}/r.fq"], f"{d}/sh.sam", MESH_OFF,
+        wraps=((M, "banded_score_packed", "K3"),
+               (M, "banded_directions", "K2")))
+    recs, base = sam_records(f"{d}/sh.sam"), sam_records(f"{d}/gpu.sam")
+    if len(recs) != N_READS:
+        fail(f"sharded: {len(recs)} SAM records for {N_READS} reads")
+    n_diff = sum(se_fields(a) != se_fields(b) for a, b in zip(recs, base))
+    n_line = sum(a != b for a, b in zip(recs, base))
+    log(f"[sharded] map_reads -x sh.manifest.json --device cuda --batch "
+        f"4096: {N_READS} reads in {stats['map_s']:.2f}s = "
+        f"{stats['reads_per_s']:.0f} reads/s; {n_diff} reads differ from "
+        f"the unsharded run in (aligned, POS, strand, CIGAR, AS, MD, NM) "
+        f"({n_line} whole records); escalated {stats['escalated']}, "
+        f"locate_dropped {stats['locate_dropped']}; launches {launches}; K3 "
+        f"calls (NB, Lp, Lt, band_w, lanes with a pattern) {calls['K3'][:4]}"
+        f"..., K2 calls {sorted(set(c[:4] for c in calls['K2']))}")
+    if n_diff:
+        fail(f"sharded: {n_diff} reads differ from the unsharded run")
+    if not (launches["K2"] > 0 and launches["K3"] == 4 * launches["K2"]):
+        fail(f"the sharded run did not launch K3 once a shard and batch "
+             f"and K2 once a batch: {launches}")
+
+    for m in (1, 2):
+        head_fastq(f"{d}/pe{m}.fq", f"{d}/shpe{m}.fq", N_SHARD_PAIRS)
+    pairs = ["-1", f"{d}/shpe1.fq", "-2", f"{d}/shpe2.fq"]
+
+    def unsharded_pairs_per_s():
+        return mode_run(torch, f"{d}/g.npz", pairs, f"{d}/unshpe.sam",
+                        [])[1]["pairs_per_s"]
+
+    # the unsharded index on the same pairs before and after: the ratio
+    unsharded_pe = [unsharded_pairs_per_s()]
+    pe_launches, pe_stats, pe_calls, pe_kept = mode_run(
+        torch, idx, pairs, f"{d}/shpe.sam", MESH_OFF,
+        wraps=((P, "banded_score", "K4"),))
+    unsharded_pe.append(unsharded_pairs_per_s())
+    got = sam_records(f"{d}/shpe.sam")
+    base = sam_records(f"{d}/pe.sam")[:2 * N_SHARD_PAIRS]
+    if len(got) != 2 * N_SHARD_PAIRS:
+        fail(f"sharded PE: {len(got)} SAM records for {N_SHARD_PAIRS} pairs")
+    differ = [i for i in range(N_SHARD_PAIRS)
+              if got[2 * i:2 * i + 2] != base[2 * i:2 * i + 2]]
+    for i in differ:
+        a, b = got[2 * i:2 * i + 2], base[2 * i:2 * i + 2]
+        sa, sb = pair_score(a), pair_score(b)
+        if not (all(int(r.split("\t")[1]) & 2 for r in a)
+                and (sb is None or sa >= sb)):
+            fail(f"sharded PE: pair {i} differs from the unsharded run "
+                 f"otherwise than by a better rescue anchor:\n{a}\n{b}")
+    log(f"[sharded] map_reads -1/-2 on the manifest, --device cuda --batch "
+        f"4096: {N_SHARD_PAIRS} pairs in {pe_stats['map_s']:.2f}s = "
+        f"{pe_stats['pairs_per_s']:.0f} pairs/s (unsharded on the same "
+        f"pairs before and after: {unsharded_pe[0]:.0f}, "
+        f"{unsharded_pe[1]:.0f}); proper "
+        f"{pe_stats['proper_pairs'] / N_SHARD_PAIRS:.4f}, rescued "
+        f"{pe_stats['rescued']}, rescue_dropped "
+        f"{pe_stats['rescue_dropped']}; {len(differ)} pairs differ from the "
+        f"unsharded run, each proper with its score no lower (the anchor "
+        f"divergence); launches {pe_launches}; the rescue's calls "
+        f"{sorted({c[:4] for c in pe_calls['K4']})}")
+    if not all(pe_launches[k] > 0 for k in ("K2", "K3", "K4")):
+        fail(f"the sharded PE run did not launch K2, K3 and K4: "
+             f"{pe_launches}")
+
+    stages = sharded_stage_breakdown(torch, np, ShardedMapper(
+        *load_sharded_index(f"{d}/sh", device=DEV)[:2],
+        params=MapperParams(seed_interval_fn="S", seed_interval_a=1.0,
+                            seed_interval_b=1.15, batch_size=4096,
+                            sa_sample=4, lut_k=11)), f"{d}/r.fq")
+    log("[sharded] one 4096-read batch, ms per stage (synchronised, median "
+        "of 3): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+
+    head_fastq(f"{d}/r.fq", f"{d}/sh_sub.fq", SHARD_CPU_READS)
+    for m in (1, 2):
+        head_fastq(f"{d}/pe{m}.fq", f"{d}/shpe{m}_sub.fq", SHARD_CPU_PAIRS)
+    _, se_secs = same_sam(idx, ["-U", f"{d}/sh_sub.fq"], f"{d}/sh_sub.sam",
+                          MESH_OFF, SHARD_CPU_READS, "sharded")
+    _, pe_secs = same_sam(idx, ["-1", f"{d}/shpe1_sub.fq", "-2",
+                                f"{d}/shpe2_sub.fq"], f"{d}/shpe_sub.sam",
+                          MESH_OFF, SHARD_CPU_PAIRS, "sharded_pe")
+    rows = {"K3_sharded": hold_call(torch, "sharded", "K3", kept["K3"]),
+            "K2_sharded": hold_call(torch, "sharded", "K2", kept["K2"]),
+            "K4_sharded_rescue": hold_call(torch, "sharded_pe", "K4",
+                                           pe_kept["K4"])}
+    secs = time.perf_counter() - t_phase
+    log(f"[sharded] phase {secs:.1f}s")
+    return {"build_s": build_s, "shards": spans, "held_bytes": held,
+            "unsharded_held_bytes": held_1, "launches": launches,
+            "stats": stats, "n_diff": n_diff, "n_line_diff": n_line,
+            "k3_calls": calls["K3"], "pe_launches": pe_launches,
+            "pe_stats": pe_stats, "pe_differ": differ,
+            "unsharded_pairs_per_s": unsharded_pe,
+            "rescue_calls": sorted({c[:4] for c in pe_calls["K4"]}),
+            "cuda_cpu_s": {"se": se_secs, "pe": pe_secs}, "rows": rows,
+            "stages_ms": stages,
+            "seconds": secs}
+
+
 def kernel_phases(torch, np, result, only=None):
     """The kernel phases (3, 4, 4b, 9, 10, K1 at bench.py's shape, 14)
     into ``result``: every kernel against its plain version, timed.  With
@@ -2843,6 +3108,8 @@ def main():
         result["pe_local"] = phase_pe_local(torch, np)
         torch.cuda.empty_cache()
         result["io_flags"] = phase_io_flags(torch, np)
+        torch.cuda.empty_cache()
+        result["sharded"] = phase_sharded(torch, np)
         torch.cuda.empty_cache()
         result["long"] = phase_long_reads(torch, np, genome)
     finally:

@@ -1,9 +1,6 @@
-"""FM-index: host construction and batched queries."""
+"""FM-index: host construction (``build``, ``sharded``) and batched
+queries (``index``, ``backtrack``).
 
-from .index import (  # noqa: F401
-    FMIndex,
-    SSA,
-    backward_search,
-    locate,
-    rank,
-)
+The package imports none of its modules itself, so that a process-pool
+worker of the sharded build loads ``build`` (numpy and the native
+library) without torch."""

@@ -9,6 +9,9 @@ fallbacks when the native library cannot be built.
 
 from __future__ import annotations
 
+import sys
+import time
+
 import numpy as np
 
 from ..basic.packed import pack_2bit
@@ -157,3 +160,27 @@ def build_kmer_lut(text: np.ndarray, k: int = 11):
     probes = np.arange(1 << (2 * k), dtype=np.int64) * 2
     return ((cum[probes] + 1).astype(np.int32),
             (cum[probes + 1] + 1).astype(np.int32))
+
+
+def build_shard_arrays(args):
+    """One shard of ``fmindex.sharded.build_sharded_index``: (fm fields,
+    ssa fields, lut or None) as numpy arrays, for ``args`` = (segment,
+    start, sa_sample, lut_k, bi_sample).  It needs only numpy and the
+    native library, so a spawned pool worker that runs it never loads
+    torch or touches a GPU."""
+    seg, start, sa_sample, lut_k, bi_sample = args
+    seg = np.ascontiguousarray(seg, dtype=np.uint8)
+    t0 = time.time()
+    sa = suffix_array(seg)
+    t1 = time.time()
+    fm_fields, ssa_fields = build_fm_arrays(seg, sa_sample=sa_sample, sa=sa,
+                                            bi_sample=bi_sample)
+    del sa
+    t2 = time.time()
+    lut = build_kmer_lut(seg, k=lut_k) if lut_k > 0 else None
+    t3 = time.time()
+    if len(seg) >= 50_000_000:  # the stage table only at real scale
+        print(f"[build_index] shard @{start}: {len(seg) / 1e6:.0f} Mbp  sa "
+              f"{t1 - t0:.1f}s  bwt+occ+ssa {t2 - t1:.1f}s  lut "
+              f"{t3 - t2:.1f}s", file=sys.stderr, flush=True)
+    return fm_fields, ssa_fields, lut

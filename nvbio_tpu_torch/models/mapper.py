@@ -232,12 +232,15 @@ def extract_seed_batch(all_reads, lens2, *, params: MapperParams):
 
 
 def seed_and_search(fm: FMIndex, all_reads, lens2, *, params: MapperParams,
-                    lut=None):
-    """Seed extraction + FM backward search.  Returns (lo, hi (2R, S),
-    offsets (2R, S), sval, flat_seeds (2R * S, seed_len))."""
+                    lut=None, pre_seeds=None):
+    """Seed extraction + FM backward search.  ``pre_seeds``: (seeds,
+    offsets, sval) from extract_seed_batch, made once for every shard of
+    a sharded index.  Returns (lo, hi (2R, S), offsets (2R, S), sval,
+    flat_seeds (2R * S, seed_len))."""
     R2, L = all_reads.shape
-    seeds, offsets, sval = extract_seed_batch(all_reads, lens2,
-                                              params=params)
+    seeds, offsets, sval = (pre_seeds if pre_seeds is not None
+                            else extract_seed_batch(all_reads, lens2,
+                                                    params=params))
     S = seeds.shape[1]
     flat_seeds = seeds.reshape(R2 * S, params.seed_len)
     lut_k = params.lut_k if lut is not None else 0
@@ -307,18 +310,32 @@ def mm_candidates(fm: FMIndex, ssa: SSA, flat_seeds, offsets, L, *,
     return cand.clamp(min=0), ovf, n_drop
 
 
+def stage_reads(reads, lens, quals, *, params: MapperParams,
+                uniform_shift: int = -1):
+    """The index-independent front of candidate_stage (strands + seed
+    extraction): the ``pre`` tuple that candidate_stage accepts, made
+    once a batch for all the shards of a sharded index."""
+    all_reads, all_quals, lens2 = both_strands(
+        reads, lens, quals, uniform_shift=uniform_shift)
+    return (all_reads, all_quals, lens2,
+            *extract_seed_batch(all_reads, lens2, params=params))
+
+
 def candidate_stage(fm, ssa, gwords, reads, lens, quals, *,
                     params: MapperParams, lut=None, uniform_shift: int = -1,
-                    genome=None):
+                    genome=None, pre=None):
     """Strands -> seeds -> search -> select -> locate -> extend: per-
     candidate (R, 2C) tensors (columns [0, C) forward, [C, 2C) reverse).
     With ``seed_mismatches >= 1`` (-N 1) every one-substitution variant
-    of every seed joins the candidate pool (``mm_candidates``)."""
+    of every seed joins the candidate pool (``mm_candidates``).  ``pre``:
+    stage_reads' output for these reads, in place of its recomputation."""
     R, L = reads.shape
-    all_reads, all_quals, lens2 = both_strands(
-        reads, lens, quals, uniform_shift=uniform_shift)
+    if pre is None:
+        pre = stage_reads(reads, lens, quals, params=params,
+                          uniform_shift=uniform_shift)
+    all_reads, all_quals, lens2 = pre[:3]
     lo, hi, offsets, sval, flat_seeds = seed_and_search(
-        fm, all_reads, lens2, params=params, lut=lut)
+        fm, all_reads, lens2, params=params, lut=lut, pre_seeds=pre[3:])
     cand, ovf, n_drop = select_and_locate(fm, ssa, lo, hi, offsets, sval, L,
                                           params=params)
     if params.seed_mismatches >= 1:
@@ -519,14 +536,25 @@ class Mapper:
     def __init__(self, fm: FMIndex, ssa: SSA, genome_symbols: np.ndarray,
                  params: MapperParams = MapperParams(), ref_name: str = "ref",
                  contigs: dict | None = None, lut=None):
-        self.device = fm.bwt_words.device
+        self._init_host(fm.bwt_words.device, ssa.k, genome_symbols, params,
+                        ref_name, contigs)
         self.fm = fm
         self.ssa = ssa
         self.lut = lut
+        gp = self._genome_np
+        self.genome = torch.from_numpy(gp).to(self.device)
+        # 2-bit packed genome for the extension kernel (K3)
+        self.gwords = pack_genome_words(gp[: self.n], device=self.device)
+
+    def _init_host(self, device, ssa_k, genome_symbols, params, ref_name,
+                   contigs):
+        """The host state every mapper shares: params, contigs, the padded
+        host genome and the counters (the device state is the caller's)."""
+        self.device = device
         # adopt the index's SSA sampling rate (a smaller one corrupts
         # locate positions, a larger one wastes LF steps)
-        if ssa.k and params.sa_sample != ssa.k:
-            params = replace(params, sa_sample=ssa.k)
+        if ssa_k and params.sa_sample != ssa_k:
+            params = replace(params, sa_sample=ssa_k)
         self.params = params
         self.ref_name = ref_name
         self.n = int(genome_symbols.shape[0])
@@ -537,10 +565,8 @@ class Mapper:
         lt_pad = params.max_read_len + 2 * params.band_w + 8
         gp = np.full(self.n + lt_pad, PAD, dtype=np.int8)
         gp[: self.n] = genome_symbols
-        self.genome = torch.from_numpy(gp).to(self.device)
-        self._genome_np = gp  # host copy for the native CIGAR/MD builder
-        # 2-bit packed genome for the extension kernel (K3)
-        self.gwords = pack_genome_words(gp[: self.n], device=self.device)
+        # host copy (int64-indexed) for the native CIGAR/MD builder
+        self._genome_np = gp
         self.locate_dropped = 0  # locate-budget slots dropped, round 1
         self.escalated = 0  # re-maps performed by escalation rounds
         self.overflowed = 0  # reads whose round-1 budgets overflowed

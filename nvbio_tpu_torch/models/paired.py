@@ -1,7 +1,7 @@
 """Paired-end mapping (Bowtie2-compatible semantics), in PyTorch.
 
-Port of ``nvbio_tpu/models/paired.py`` without its sharding (``span``)
-arguments.  Decision ladder per pair, as the reference:
+Port of ``nvbio_tpu/models/paired.py``.  Decision ladder per pair, as
+the reference:
 
   1. best concordant candidate pair (each mate >= its score-min), from
      one ``candidate_stage`` over both mates and a (2C x 2C) score matrix;
@@ -39,10 +39,20 @@ from .mapq import mapq_v2
 from .params import MapperParams
 
 
-def _se_reduce(c, lens, params: MapperParams):
-    """Top-2 single-end reduction over a candidate dict (R, 2C)."""
+def _owned(ws, span):
+    """Window origins inside a shard's ownership interval [lo, hi)."""
+    lo, hi = span
+    return (ws >= lo) & (ws < hi)
+
+
+def _se_reduce(c, lens, params: MapperParams, span=None):
+    """Top-2 single-end reduction over a candidate dict (R, 2C).  With
+    ``span`` = (lo, hi) (a shard of a sharded index) only the candidates
+    whose window origin the shard owns count."""
     C = params.max_candidates
     sc = c["score"]
+    if span is not None:
+        sc = torch.where(_owned(c["win_start"], span), sc, NEG_INF)
     bi, best, second = top2(sc)
     return {
         "best": best,
@@ -202,11 +212,18 @@ def _rescue(genome, n: int, anchor_ws, anchor_strand, anchor_len,
 
 
 def pe_map_batch(fm, ssa, gwords, genome, r1, l1, q1, r2, l2, q2, *,
-                 params: MapperParams, lut=None):
+                 params: MapperParams, lut=None, span=None):
     """Paired forward step over one padded chunk of R pairs.  Returns
     per-mate dicts (aligned, strand, win_start, score, mapq, second,
     has_second, se_* details, resc) and pair info (proper, discordant,
-    has_conc, pair_score, pair_second, locate_dropped, rescue_dropped)."""
+    has_conc, pair_score, pair_second, locate_dropped, rescue_dropped).
+
+    ``span`` = (lo, hi): the index is one shard of a sharded index, whose
+    ownership interval in local window origins is [lo, hi).  A concordant
+    or rescued pair belongs to the shard that owns its leftmost mate's
+    origin, an SE candidate to the shard that owns its own; the shard
+    overlap covers a whole pair, so boundary pairs are found whole in the
+    left shard."""
     R = r1.shape[0]
     C = params.max_candidates
     n = fm.n
@@ -232,6 +249,9 @@ def pe_map_batch(fm, ssa, gwords, genome, r1, l1, q1, r2, l2, q2, *,
     e1 = p1 + l1[:, None, None]
     e2 = p2 + l2[:, None, None]
     conc_a, conc_b = _pair_cases(params, p1, e1, st1, p2, e2, st2)
+    if span is not None:
+        conc_a = conc_a & _owned(p1, span)
+        conc_b = conc_b & _owned(p2, span)
     conc = (conc_a | conc_b) & s1ok & s2ok
     pair_sc = torch.where(
         conc, c1["score"][:, :, None] + c2["score"][:, None, :],
@@ -241,9 +261,15 @@ def pe_map_batch(fm, ssa, gwords, genome, r1, l1, q1, r2, l2, q2, *,
     i1 = pbi // (2 * C)
     i2 = pbi % (2 * C)
 
-    se1 = _se_reduce(c1, l1, params)
-    se2 = _se_reduce(c2, l2, params)
-    an1, an2 = se1, se2
+    se1 = _se_reduce(c1, l1, params, span=span)
+    se2 = _se_reduce(c2, l2, params, span=span)
+    # rescue anchors on the unmasked reduction: a reverse-strand anchor
+    # just right of a shard boundary has its window clamped in its own
+    # shard, while the previous shard, whose overlap holds it whole, can
+    # rescue the pair; ownership then goes by the rescued pair's leftmost
+    # coordinate
+    an1, an2 = ((se1, se2) if span is None
+                else (_se_reduce(c1, l1, params), _se_reduce(c2, l2, params)))
 
     # --- mate rescue (anchor = the better-aligned single mate), on a
     # compacted capacity of lanes; overflow pairs skip it (counted) ---
@@ -292,6 +318,13 @@ def pe_map_batch(fm, ssa, gwords, genome, r1, l1, q1, r2, l2, q2, *,
         resc1_ok = an2["aligned"] & (res1["score"] >= smin1) & (wa | wb)
         rsc_a = torch.where(resc2_ok, an1["best"] + res2["score"], NEG_INF)
         rsc_b = torch.where(resc1_ok, an2["best"] + res1["score"], NEG_INF)
+        if span is not None:
+            left_a = torch.where(an1["strand"] == 0, an1["win_start"],
+                                 res2["win_start"])
+            left_b = torch.where(an2["strand"] == 0, an2["win_start"],
+                                 res1["win_start"])
+            rsc_a = torch.where(_owned(left_a, span), rsc_a, NEG_INF)
+            rsc_b = torch.where(_owned(left_b, span), rsc_b, NEG_INF)
         use_a = rsc_a >= rsc_b
         has_rescue = (rsc_a > NEG_INF // 2) | (rsc_b > NEG_INF // 2)
         rescue_pair = torch.where(use_a, rsc_a, rsc_b)
@@ -328,7 +361,8 @@ def pe_map_batch(fm, ssa, gwords, genome, r1, l1, q1, r2, l2, q2, *,
             ws = torch.where(resc_here, res["win_start"], ws)
             score = torch.where(resc_here, res["score"], score)
             aligned = aligned | resc_here
-            # this mate anchored the rescue: report the anchor alignment
+            # this mate anchored the rescue: report the (unmasked)
+            # anchor alignment
             anchor_here = (~has_conc) & has_rescue & (
                 use_a if which == 1 else (~use_a))
             strand = torch.where(anchor_here, an["strand"], strand)

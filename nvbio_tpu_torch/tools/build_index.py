@@ -1,16 +1,21 @@
 """Index builder CLI (nvBWT + nvSSA equivalent), host only.
 
-Port of ``nvbio_tpu/tools/build_index.py`` for unsharded indexes:
-FASTA -> concatenation + seeded N substitution -> native SA-IS -> BWT,
-blocked occ tables, sampled SA, k-mer LUT -> one ``.npz`` in the
-reference's format (it loads in both packages).
+Port of ``nvbio_tpu/tools/build_index.py``: FASTA -> concatenation +
+seeded N substitution -> native SA-IS -> BWT, blocked occ tables,
+sampled SA, k-mer LUT -> one ``.npz`` in the reference's format (it
+loads in both packages), or, with ``--shard-bp``, a sharded index for
+references past one int32 index (``<prefix>.manifest.json``, one
+``.npz`` per shard and ``<prefix>.genome.npy``, the reference's files):
 
     python -m nvbio_tpu_torch.tools.build_index ref.fa ref.npz
+    python -m nvbio_tpu_torch.tools.build_index hg38.fa hg38 \\
+        --shard-bp 1600000000 --procs 2
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -35,7 +40,14 @@ def main(argv=None):
                    default="auto",
                    help="suffix sort: auto and sais both run native SA-IS")
     p.add_argument("--shard-bp", type=int, default=0,
-                   help="sharded indexes are not ported yet")
+                   help="build a SHARDED index with this many bp per "
+                   "shard (for >2 Gbp references; writes "
+                   "<output>.manifest.json + per-shard files)")
+    p.add_argument("--shard-overlap", type=int, default=1024)
+    p.add_argument("--procs", type=int, default=0,
+                   help="sharded builds: worker processes (0 = one per "
+                   "core up to the shard count; shards build "
+                   "independently)")
     p.add_argument("--device-occ", action="store_true",
                    help="device occ tables are not ported yet")
     p.add_argument("--accelerator", action="store_true",
@@ -43,8 +55,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.algorithm in ("pd", "device"):
         p.error(f"--algorithm {args.algorithm} is not ported: use auto/sais")
-    if args.shard_bp:
-        p.error("--shard-bp: sharded indexes are not ported yet")
     if args.device_occ or args.accelerator:
         p.error("--device-occ/--accelerator: the port builds on the host")
 
@@ -60,6 +70,24 @@ def main(argv=None):
     symbols = g["symbols"]
     print(f"[build_index] {len(records)} contigs, {len(symbols)} bp, "
           f"{len(g['amb'])} ambiguity runs", file=sys.stderr)
+    if args.shard_bp > 0:
+        from ..fmindex.sharded import build_sharded_index, save_sharded_index
+
+        prefix = (args.output[:-4] if args.output.endswith(".npz")
+                  else args.output)
+        # mono SSA marks: the sharded mappers locate with single LF steps
+        n_procs = args.procs or min(os.cpu_count() or 1,
+                                    1 + len(symbols) // args.shard_bp)
+        sidx = build_sharded_index(
+            symbols, shard_bp=args.shard_bp, overlap=args.shard_overlap,
+            sa_sample=args.sa_sample, lut_k=args.lut_k, bi_sample=False,
+            n_procs=n_procs)
+        save_sharded_index(prefix, sidx, symbols.astype("int8"), g["names"],
+                           g["lens"])
+        print(f"[build_index] wrote {len(sidx.shards)}-shard index "
+              f"{prefix}.manifest.json in {time.time() - t0:.1f}s",
+              file=sys.stderr)
+        return 0
     t1 = time.time()
     sa = suffix_array(symbols)
     dt = time.time() - t1

@@ -20,6 +20,16 @@ reads, with the reference's flags and defaults (Bowtie2 names:
     python -m nvbio_tpu_torch.tools.map_reads -x ref.npz -U reads.fq \\
         -S out.sam --device cuda --phred64 --un un.fq.gz --al al.fq \\
         --rg-id rg1 --rg SM:s1 --stats s.json --html report.html
+    python -m nvbio_tpu_torch.tools.map_reads -x hg38.manifest.json \\
+        -U reads.fq -S out.sam --device cuda
+
+-x names an unsharded .npz, or a sharded index (build_index --shard-bp)
+by its prefix or its .manifest.json; every mode and option above maps
+against either.  On a sharded index the shards run one after another
+on the one device (--mesh off, and --mesh auto with fewer devices than
+shards); the shard-per-device mesh (--mesh on, or auto with enough
+devices) is not ported.  --fm2-mode is taken and changes nothing: the
+port has no pair-BWT, and the reference's modes give identical output.
 
 As in the reference, -a applies to -U input only: with -1/-2 it is
 taken and has no effect.  The input and output options are the
@@ -59,7 +69,9 @@ def _parse(argv):
     p = argparse.ArgumentParser(
         prog="map_reads", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("-x", "--index", required=True, help="index .npz")
+    p.add_argument("-x", "--index", required=True,
+                   help="index .npz, or a sharded index's prefix or "
+                   ".manifest.json")
     p.add_argument("-U", help="unpaired reads (FASTQ/FASTA/SAM, .gz ok)")
     p.add_argument("-1", dest="m1", help="mate-1 FASTQ(.gz)")
     p.add_argument("-2", dest="m2", help="mate-2 FASTQ(.gz)")
@@ -133,7 +145,9 @@ def _parse(argv):
                    help="reads per device batch")
     p.add_argument("--lut-k", type=int, default=None,
                    help="rebuild the seed-tail k-mer LUT at this depth "
-                   "at load time (0 = none; default: the index's)")
+                   "at load time (0 = none; default: the index's; on a "
+                   "sharded index 0 keeps the stored one, as the "
+                   "reference)")
     p.add_argument("--locate-frac", type=float, default=None,
                    help="cross-read SSA-locate budget as a fraction of "
                    "the selected hit slots (default 0.25)")
@@ -173,18 +187,19 @@ def _parse(argv):
     p.add_argument("--xprof", metavar="DIR",
                    help="write a torch.profiler Chrome trace of the "
                    "mapping loop into DIR")
-    # reference flags of sharded indexes, not ported yet
-    p.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--fm2-mode", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mesh", default="auto", choices=["auto", "on", "off"],
+                   help="sharded index: shard-per-device over several "
+                   "devices (not ported: 'on', and 'auto' with at least "
+                   "as many devices as shards, stop); 'off' maps the "
+                   "shards one after another on one device")
+    p.add_argument("--fm2-mode", default="auto",
+                   choices=["auto", "off", "resident", "stream"],
+                   help="taken for the reference's command lines; the port "
+                   "has no 2-step FM-index and maps batch-major in every "
+                   "mode (the reference's modes give identical output)")
     args = p.parse_args(argv)
-    unported = [
-        (args.mesh, "--mesh"),
-        (args.fm2_mode, "--fm2-mode"),
-    ]
-    for used, flag in unported:
-        if used:
-            p.error(f"{flag} is not ported to nvbio_tpu_torch yet; use "
-                    "nvbio_tpu.tools.map_reads")
+    if args.mesh == "on":
+        p.error(_MESH_UNPORTED)
     if args.resume and (args.sam.endswith(".gz")
                         or args.sam.endswith(".bam") or args.m1):
         p.error("--resume supports unpaired plain .sam output")
@@ -195,6 +210,10 @@ def _parse(argv):
     if args.max_alns < 1:
         p.error("--max-alns wants a positive count")
     return p, args
+
+
+_MESH_UNPORTED = ("--mesh: mapping a sharded index shard-per-device is "
+                  "ROADMAP item 11, not ported; use --mesh off")
 
 
 def _pair(p, txt, flag):
@@ -233,17 +252,25 @@ def main(argv=None):
     from ..alignment.types import GotohScheme
     from ..device import resolve_device
     from ..fmindex.build import build_kmer_lut
+    from ..fmindex.sharded import load_sharded_index, read_manifest
     from ..io.index_file import load_index
     from ..models.mapper import Mapper, MapResult
     from ..models.paired import PairedMapper
+    from ..models.sharded_mapper import PairedShardedMapper, ShardedMapper
     from ..models.params import MapperParams, eval_simple_func
     from ..strings.string_set import pack_reads
 
     device = resolve_device(args.device)
     prefix = args.index[:-len(".manifest.json")] \
         if args.index.endswith(".manifest.json") else args.index
-    if os.path.exists(prefix + ".manifest.json"):
-        p.error("sharded indexes are not ported to nvbio_tpu_torch yet")
+    sharded = os.path.exists(prefix + ".manifest.json")
+    if sharded:
+        # auto takes the mesh where the reference does: at least as many
+        # devices as shards (one device on the CPU)
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        if (args.mesh == "auto"
+                and n_dev >= len(read_manifest(prefix)["shards"]) > 1):
+            p.error(_MESH_UNPORTED)
 
     mp_mx, mp_mn = _pair(p, args.mp, "--mp")
     rdg_o, rdg_e = _pair(p, args.rdg, "--rdg")
@@ -270,15 +297,21 @@ def main(argv=None):
         seed_interval = max(1, int(eval_simple_func(*ifn, L0) + 0.5))
 
     t0 = time.perf_counter()
-    fm, ssa, genome, meta = load_index(args.index, device=device)
-    lut, lut_k = meta.get("lut"), meta.get("lut_k", 0)
-    if args.lut_k is not None and args.lut_k != lut_k:
-        lut_k = args.lut_k
-        lut = None
-        if lut_k > 0:
-            lo, hi = build_kmer_lut(genome.astype(np.uint8), k=lut_k)
-            lut = (torch.from_numpy(lo).to(device),
-                   torch.from_numpy(hi).to(device))
+    if sharded:
+        sidx, genome, meta = load_sharded_index(prefix, lut_k=args.lut_k,
+                                                device=device)
+        genome = genome.astype(np.uint8)
+        lut_k = meta["lut_k"]
+    else:
+        fm, ssa, genome, meta = load_index(args.index, device=device)
+        lut, lut_k = meta.get("lut"), meta.get("lut_k", 0)
+        if args.lut_k is not None and args.lut_k != lut_k:
+            lut_k = args.lut_k
+            lut = None
+            if lut_k > 0:
+                lo, hi = build_kmer_lut(genome.astype(np.uint8), k=lut_k)
+                lut = (torch.from_numpy(lo).to(device),
+                       torch.from_numpy(hi).to(device))
     params = MapperParams(
         seed_len=args.seed_len,
         seed_interval=seed_interval,
@@ -313,8 +346,12 @@ def main(argv=None):
         "lens": np.array(meta["contig_lens"], dtype=np.int64),
     }
     paired = not args.U
-    cls = PairedMapper if paired else Mapper
-    mapper = cls(fm, ssa, genome, params=params, contigs=contigs, lut=lut)
+    if sharded:
+        cls = PairedShardedMapper if paired else ShardedMapper
+        mapper = cls(sidx, genome, params=params, contigs=contigs)
+    else:
+        cls = PairedMapper if paired else Mapper
+        mapper = cls(fm, ssa, genome, params=params, contigs=contigs, lut=lut)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_load = time.perf_counter() - t0

@@ -10,7 +10,8 @@ sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
 map_reads (CUDA SAM = CPU SAM), -S *.bam (CUDA BAM = CPU BAM), and the
 alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
 32 768 winners in LOCAL, hamming_backtrack_1 (-N 1's seed search) and
-the SAM of --local, -N 1 and -a (CUDA SAM = CPU SAM).
+the SAM of --local, -N 1 and -a (CUDA SAM = CPU SAM), and single-end
+map_reads on a sharded index (CUDA SAM = CPU SAM).
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -759,3 +760,42 @@ def test_mode_sam_on_cuda_equals_cpu(cuda, tmp_path, data, flags):
         sams[dev] = [ln for ln in open(tmp_path / f"{dev}.sam")
                      if not ln.startswith("@PG")]
     assert sams["cuda"] == sams["cpu"]
+
+
+def test_sharded_se_sam_on_cuda_equals_cpu(cuda, tmp_path):
+    """build_index --shard-bp, then map_reads on the manifest: --device
+    cuda SAM = --device cpu SAM on 256 reads over 3 shards, reads planted
+    across both boundaries included; K2 and K3 launched."""
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    g = random_genome(150_000, seed=11)
+    write_fasta(str(tmp_path / "g.fa"), [("c1", g[:90_000]),
+                                          ("c2", g[90_000:])])
+    sim = simulate_reads(g, 256, 100, error_rate=0.02, seed=12)
+    seqs = [s.astype(np.uint8) for s in sim["seqs"]]
+    for i, s0 in enumerate((59_950, 59_990, 119_950, 119_990)):
+        seqs[i] = g[s0:s0 + 100].astype(np.uint8)
+    write_fastq(str(tmp_path / "r.fq"), [
+        (f"r{i}", seqs[i], sim["quals"][i]) for i in range(256)])
+    assert build([str(tmp_path / "g.fa"), str(tmp_path / "g"),
+                  "--shard-bp", "60000", "--shard-overlap", "2048",
+                  "--lut-k", "8"]) == 0
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        banded_dp.reset_launch_counts()
+        assert mapr(["-x", str(tmp_path / "g.manifest.json"), "-U",
+                     str(tmp_path / "r.fq"), "-S",
+                     str(tmp_path / f"{dev}.sam"), "--device", dev,
+                     "--mesh", "off", "--batch", "128"]) == 0
+        if dev == "cuda":
+            counts = {k: f.launches for k, f in banded_dp.KERNELS.items()}
+            assert counts["K2"] > 0 and counts["K3"] > 0, counts
+        sams[dev] = [ln for ln in open(tmp_path / f"{dev}.sam")
+                     if not ln.startswith("@PG")]
+    assert sams["cuda"] == sams["cpu"]
+    recs = [ln.split("\t") for ln in sams["cuda"] if not ln.startswith("@")]
+    assert sum(not int(r[1]) & 4 for r in recs) > 240

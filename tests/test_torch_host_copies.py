@@ -1,6 +1,6 @@
 """The port's copies of the host code (``nvbio_tpu_torch.basic``,
-``.io``, ``.native``, ``.utils``, ``.parallel``) give the originals'
-outputs on seeded inputs.  The copies exist so that the port imports nothing of
+``.io``, ``.native``, ``.utils``, ``.parallel``, and the sharded index's
+``_shard_bounds``) give the originals' outputs on seeded inputs.  The copies exist so that the port imports nothing of
 ``nvbio_tpu``; this holds them to the reference they were copied from."""
 
 import gzip
@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import nvbio_tpu.basic.packed as ref_packed
+import nvbio_tpu.fmindex.sharded as ref_sharded
 import nvbio_tpu.io.genome as ref_genome
 import nvbio_tpu.io.sam as ref_sam
 import nvbio_tpu.native as ref_native
@@ -17,6 +18,7 @@ import nvbio_tpu.utils.html as ref_html
 import nvbio_tpu.utils.stats as ref_stats
 import nvbio_tpu.utils.simulate as ref_simulate
 import nvbio_tpu_torch.basic.packed as port_packed
+import nvbio_tpu_torch.fmindex.sharded as port_sharded
 import nvbio_tpu_torch.io.genome as port_genome
 import nvbio_tpu_torch.io.sam as port_sam
 import nvbio_tpu_torch.native as port_native
@@ -87,6 +89,15 @@ def test_native_copies_match(name):
     got = CASES[name](port_native)
     assert want is not None and got is not None
     _equal(got, want)
+
+
+@pytest.mark.parametrize("n,shard_bp,overlap", [
+    (3_088_269_832, 1_600_000_000, 1024), (64_444_167, 16_777_216, 1024),
+    (61_024, 30_000, 1024), (61_025, 30_000, 1024), (150_000, 60_000, 2048),
+    (60_000, 30_000, 0), (7, 2, 3), (0, 10, 1)])
+def test_shard_bounds_copy_matches(n, shard_bp, overlap):
+    _equal(port_sharded._shard_bounds(n, shard_bp, overlap),
+           ref_sharded._shard_bounds(n, shard_bp, overlap))
 
 
 def test_pack_2bit_copy_matches():

@@ -79,6 +79,24 @@ GUARDED = textwrap.dedent("""
     recs = [l for l in open(f"{out}/pe.sam") if not l.startswith("@")]
     print("pe_records", len(recs),
           "proper", sum(int(l.split("\\t")[1]) & 2 > 0 for l in recs))
+
+    # a sharded index: two build workers, then SE and PE on its manifest
+    assert build([f"{out}/g.fa", f"{out}/sh", "--lut-k", "8", "--shard-bp",
+                  "12000", "--shard-overlap", "1024", "--procs", "2"]) == 0
+    for name, reads in (("sh", ["-U", f"{out}/r.fq"]),
+                        ("shpe", ["-1", f"{out}/p1.fq", "-2",
+                                  f"{out}/p2.fq"])):
+        assert mapr(["-x", f"{out}/sh.manifest.json", *reads, "-S",
+                     f"{out}/{name}.sam", "--device", "cpu", "--batch",
+                     "32"]) == 0
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
+    def records(name):
+        return [l.replace("\\tRG:Z:g", "") for l in open(f"{out}/{name}")
+                if not l.startswith("@")]
+
+    print("sharded", records("sh.sam") == records("o.sam"),
+          records("shpe.sam") == records("pe.sam"))
 """)
 
 
@@ -94,6 +112,7 @@ def test_port_runs_without_jax(tmp_path):
     assert int(n_rec) == 40 and int(n_al) >= 36
     _, n_rec, _, n_proper = lines[2].split()
     assert int(n_rec) == 40 and int(n_proper) >= 36
+    assert lines[3] == "sharded True True"  # the same SAM as unsharded
 
 
 def _tiny_index(tmp_path):
@@ -126,15 +145,50 @@ def test_map_reads_cuda_raises_without_cuda(tmp_path):
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "on"],
-                                   ["--fm2-mode", "resident"]],
-                         ids=["mesh", "fm2-mode"])
+@pytest.mark.parametrize("flags", [["--mesh", "on"]], ids=["mesh"])
 def test_map_reads_rejects_unported_flags(tmp_path, flags, capsys):
     from nvbio_tpu_torch.tools.map_reads import main as mapr
 
     with pytest.raises(SystemExit):
         mapr(_tiny_index(tmp_path) + ["--device", "cpu"] + flags)
-    assert "not ported" in capsys.readouterr().err
+    assert "item 11, not ported" in capsys.readouterr().err
+
+
+def test_shard_build_worker_imports_neither_torch_nor_jax(tmp_path):
+    """The sharded build's pool workers run fmindex.build's
+    build_shard_arrays: in a process that refuses torch, jax and the JAX
+    package, it builds a shard equal to the in-process build."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("torch", "jax", "jaxlib",
+                                          "nvbio_tpu"):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        from nvbio_tpu_torch.fmindex.build import build_shard_arrays
+        seg = np.random.default_rng(5).integers(0, 4, 20_000).astype(
+            np.uint8)
+        fm, ssa, lut = build_shard_arrays((seg, 0, 8, 6, False))
+        np.savez(sys.argv[1], *fm, *ssa, *lut)
+    """)
+    out = str(tmp_path / "shard.npz")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, out],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    from nvbio_tpu_torch.fmindex.build import build_shard_arrays
+
+    seg = np.random.default_rng(5).integers(0, 4, 20_000).astype(np.uint8)
+    fm, ssa, lut = build_shard_arrays((seg, 0, 8, 6, False))
+    with np.load(out) as z:
+        for i, want in enumerate([*fm, *ssa, *lut]):
+            np.testing.assert_array_equal(z[f"arr_{i}"], want)
 
 
 @pytest.fixture()
