@@ -140,7 +140,16 @@ failure:
    with the unsharded index's pairs/s on the same pairs before and
    after; a per-stage breakdown of one sharded SE batch; CUDA SAM = CPU
    SAM on 1 024 reads and 256 pairs; K3, K2 and K4 held against their
-   plain versions on calls the sharded runs made.
+   plain versions on calls the sharded runs made;
+23. the MEM and q-gram mappers on the same index (after the -a phase):
+   mem_map and then qmap --device cuda --batch 4096 --stats over the
+   short-read run's 100 000 reads, each with the counts reset just
+   before and read just after: K2 and K3 launched and held against their
+   plain versions on a call the run made, the short-read accuracy bars,
+   reads/s, peak memory, the q-gram index's build seconds, 1024 reads
+   under --device cuda and --device cpu to identical SAM lines, and a
+   per-stage breakdown of one mem_map batch (SMEM search, locate,
+   extension, top-2, traceback, host finish).
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score and its flag entry
@@ -1511,6 +1520,21 @@ def sam_records(path):
         return [ln for ln in f if not ln.startswith("@")]
 
 
+def se_accuracy(recs, sim):
+    """(aligned, correct) shares of SAM records against their simulated
+    origins: aligned of the records, correct (the true strand, POS within
+    8 bp of the origin) of the aligned."""
+    aligned = correct = 0
+    for i, ln in enumerate(recs):
+        f = ln.split("\t", 4)
+        flag, pos = int(f[1]), int(f[3])
+        if not flag & 4:
+            aligned += 1
+            correct += (int(bool(flag & 16)) == int(sim["true_strand"][i])
+                        and abs(pos - 1 - int(sim["true_pos"][i])) <= 8)
+    return aligned / max(len(recs), 1), correct / max(aligned, 1)
+
+
 def phase_golden(torch):
     from nvbio_tpu_torch.io.fasta import write_fasta
     from nvbio_tpu_torch.io.fastq import write_fastq
@@ -1616,6 +1640,23 @@ def phase_golden_pe(torch):
     return counts
 
 
+def stage_timer(torch, t):
+    """The stage breakdowns' wrapper factory: timed(name, fn) runs fn
+    between two device synchronisations and adds its host-clock ms to
+    t[name] (``name`` may be a function of the call's arguments)."""
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            key = name(a) if callable(name) else name
+            t[key] = t.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    return timed
+
+
 def pe_stage_breakdown(torch, np, npz, r1_fq, r2_fq, batch=4096):
     """Host-clock ms per stage (synchronised) of full paired-end batches
     through PairedMapper.map_pairs_stream and to_sam_records_pe, as the
@@ -1648,16 +1689,7 @@ def pe_stage_breakdown(torch, np, npz, r1_fq, r2_fq, batch=4096):
         r2, l2, qm2, _ = pack_reads(s2, q2, max_len=320)
         batches.append((names, r1, l1, qm1, r2, l2, qm2))
     t, calls = {}, []
-
-    def timed(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            t[name] = t.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-        return run
+    timed = stage_timer(torch, t)
 
     def events(name, fn):
         def run(*a, **k):
@@ -1936,18 +1968,7 @@ def phase_real_size(torch, np):
     recs = sam_records(f"{d}/gpu.sam")
     if len(recs) != N_READS:
         fail(f"{len(recs)} SAM records for {N_READS} reads")
-    aligned = correct = 0
-    for i, ln in enumerate(recs):
-        f = ln.split("\t", 4)
-        flag, pos = int(f[1]), int(f[3])
-        if flag & 4:
-            continue
-        aligned += 1
-        if (int(bool(flag & 16)) == int(sim["true_strand"][i])
-                and abs(pos - 1 - int(sim["true_pos"][i])) <= 8):
-            correct += 1
-    frac_al = aligned / N_READS
-    frac_ok = correct / max(aligned, 1)
+    frac_al, frac_ok = se_accuracy(recs, sim)
     log(f"[real] map_reads --device cuda: {N_READS} reads in "
         f"{stats['map_s']:.2f}s = {stats['reads_per_s']:.0f} reads/s "
         f"(index load {stats['load_s']:.1f}s not counted); peak "
@@ -2096,14 +2117,17 @@ def capture(torch, module, name, calls, kept):
     return lambda: setattr(module, name, fn)
 
 
-def mode_run(torch, npz, inputs, sam, flags, wraps=()):
-    """map_reads --device cuda --batch 4096 ``flags`` on ``inputs`` (-U
-    or -1/-2 files), the launch counts reset just before and read just
-    after; ``wraps`` = (module, wrapper name, kernel) to capture().
-    Returns (launches, --stats JSON, calls and kept arguments by
-    kernel)."""
+def mode_run(torch, npz, inputs, sam, flags, wraps=(), tool=None):
+    """map_reads (or the CLI ``tool``, a main() taking map_reads' -x, -S,
+    --device, --batch and --stats) --device cuda --batch 4096 ``flags``
+    on ``inputs`` (-U or -1/-2 files), the launch counts reset just
+    before and read just after; ``wraps`` = (module, wrapper name,
+    kernel) to capture().  Returns (launches, --stats JSON, calls and
+    kept arguments by kernel)."""
     from nvbio_tpu_torch.ops import banded_dp
     from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    mapr = tool or mapr
 
     calls, kept, undo = {}, {}, []
     for module, name, kernel in wraps:
@@ -2123,11 +2147,14 @@ def mode_run(torch, npz, inputs, sam, flags, wraps=()):
     return launches, json.load(open(f"{sam}.json")), calls, kept
 
 
-def same_sam(npz, inputs, sam, flags, batch, tag):
+def same_sam(npz, inputs, sam, flags, batch, tag, tool=None):
     """The SAM records of ``inputs`` mapped under --device cuda and
-    --device cpu at --batch ``batch``: identical, or fail.  Returns
-    (records, seconds by device)."""
+    --device cpu at --batch ``batch`` by map_reads (or the CLI
+    ``tool``): identical, or fail.  Returns (records, seconds by
+    device)."""
     from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    mapr = tool or mapr
 
     recs, secs = {}, {}
     for dev in (DEV, "cpu"):
@@ -2140,7 +2167,7 @@ def same_sam(npz, inputs, sam, flags, batch, tag):
         n_diff = sum(a != b for a, b in zip(recs[DEV], recs["cpu"]))
         fail(f"{tag}: --device cpu SAM differs from --device cuda "
              f"({n_diff} of {len(recs[DEV])} records)")
-    log(f"[{tag}] {' '.join(flags)}, {' '.join(inputs[1::2])} at --batch "
+    log(f"[{tag}] {' '.join([*flags, *inputs[1::2]])} at --batch "
         f"{batch}: identical SAM records under --device cuda "
         f"({secs[DEV]:.1f}s) and --device cpu ({secs['cpu']:.1f}s)")
     return recs[DEV], secs
@@ -2315,15 +2342,7 @@ def phase_n1(torch, np, g, sim):
     if not (launches["K2"] > 0 and launches["K3"] > 0):
         fail(f"the -N 1 run did not launch K2 and K3: {launches}")
     recs = sam_records(f"{d}/n1.sam")
-    aligned = correct = 0
-    for i, ln in enumerate(recs):
-        f = ln.split("\t", 4)
-        flag, pos = int(f[1]), int(f[3])
-        if not flag & 4:
-            aligned += 1
-            correct += (int(bool(flag & 16)) == int(sim["true_strand"][i])
-                        and abs(pos - 1 - int(sim["true_pos"][i])) <= 8)
-    frac_al, frac_ok = aligned / n, correct / max(aligned, 1)
+    frac_al, frac_ok = se_accuracy(recs, sim)
     log(f"[n1] map_reads -N 1 --device cuda --batch 4096: {n} reads in "
         f"{stats['map_s']:.2f}s = {stats['reads_per_s']:.0f} reads/s; "
         f"aligned {frac_al:.4f}, correct {frac_ok:.4f} of aligned; "
@@ -2437,6 +2456,136 @@ def phase_all(torch, np, sim):
     log(f"[all] phase {secs:.1f}s")
     return {"launches": launches, "stats": stats, "records": len(recs),
             "k2_calls": calls["K2"], "rows": rows, "seconds": secs}
+
+
+def mem_stage_breakdown(torch, np, npz, reads_fq, batch=4096):
+    """Host-clock ms per stage (synchronised) of a MemMapper's full
+    batches through its own map_stream and to_sam_records, as mem_map
+    runs them; the median of batches 2-4.  Wrappers time the upload, the
+    strands, the SMEM search, the locate, the extension (K3), the top-2
+    and the traceback (K2) + walk; top-K + expansion is the rest of the
+    forward step, the host finish what is left of the batch."""
+    import itertools
+
+    from nvbio_tpu_torch.io.index_file import load_index
+    from nvbio_tpu_torch.io.sequence import ReadBatchIterator
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.models import mem_mapper as MM
+    from nvbio_tpu_torch.models.params import MapperParams
+    from nvbio_tpu_torch.strings.string_set import pack_reads
+
+    fm, ssa, genome, meta = load_index(npz, device=torch.device(DEV))
+    m = MM.MemMapper(fm, ssa, genome, params=MapperParams(
+        batch_size=batch, sa_sample=meta["sa_sample"]))
+    batches = []
+    for names, seqs, quals in itertools.islice(
+            ReadBatchIterator(reads_fq, batch), 4):
+        reads, lens, qmat, _ = pack_reads(seqs, quals)
+        batches.append((names, reads, lens, qmat))
+    t = {}
+    timed = stage_timer(torch, t)
+    wrap = {(MM, "both_strands"): "strands",
+            (MM, "find_mems"): "SMEM search",
+            (MM, "locate"): "locate",
+            (MM, "extend_candidates"): "extend (K3)",
+            (MM, "top2_finish"): "top2+mapq",
+            (M, "traceback_walk_batch"): "traceback (K2)+walk"}
+    saved = {key: getattr(*key) for key in wrap}
+    m._upload = timed("upload", m._upload)
+    m._forward = timed("forward", m._forward)
+    rows = []
+    try:
+        for (mod, name), label in wrap.items():
+            setattr(mod, name, timed(label, saved[(mod, name)]))
+        stream = m.map_stream(iter(batches))
+        for _ in batches:
+            t.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            names, seqs, lens, quals, results = next(stream)
+            recs = m.to_sam_records(names, seqs, lens, quals, results)
+            total = (time.perf_counter() - t0) * 1e3
+            assert len(recs) == len(names)
+            fwd = t.pop("forward")
+            row = dict(t, **{"top-K + expansion": fwd - sum(
+                t[k] for k in ("strands", "SMEM search", "locate",
+                               "extend (K3)", "top2+mapq"))})
+            row["host finish+SAM records"] = total - sum(row.values())
+            row["batch"] = total
+            rows.append(row)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    rows = rows[1:] or rows  # the first batch warms the allocator
+    return {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+
+
+def phase_mem_qmap(torch, np, sim):
+    """The MEM and q-gram mappers over the short-read run's 100 000 reads
+    on the chr20-length index: mem_map, then qmap, --device cuda --batch
+    4096 --stats, each with the counts reset just before and read just
+    after; K2 and K3 launched and held against their plain versions on a
+    call each run made; the accuracy bars; 1024 reads under both
+    devices; a stage breakdown of one mem_map batch."""
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.models import qgram_mapper as QM
+    from nvbio_tpu_torch.tools.mem_map import main as mem_map
+    from nvbio_tpu_torch.tools.qmap import main as qmap
+
+    t_phase = time.perf_counter()
+    d = mode_reads(np, sim)
+    build_ms = {}
+    qbuild = QM.build_qgram_index
+    out, rows = {}, {}
+    for tag, tool in (("mem_map", mem_map), ("qmap", qmap)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build_ms.clear()
+        QM.build_qgram_index = stage_timer(torch, build_ms)("build", qbuild)
+        try:
+            launches, stats, calls, kept = mode_run(
+                torch, f"{d}/g.npz", ["-U", f"{d}/r.fq"], f"{d}/{tag}.sam",
+                [], wraps=((M, "banded_score_packed", "K3"),
+                           (M, "banded_directions", "K2")), tool=tool)
+        finally:
+            QM.build_qgram_index = qbuild
+        peak = torch.cuda.max_memory_allocated()
+        if not (launches["K2"] > 0 and launches["K3"] > 0):
+            fail(f"the {tag} run did not launch K2 and K3: {launches}")
+        recs = sam_records(f"{d}/{tag}.sam")
+        if len(recs) != N_READS:
+            fail(f"{tag}: {len(recs)} SAM records for {N_READS} reads")
+        frac_al, frac_ok = se_accuracy(recs, sim)
+        qb = (f"q-gram build {build_ms['build'] / 1e3:.2f}s, "
+              if tag == "qmap" else "")
+        log(f"[mem_qmap] {tag} --device cuda --batch 4096: {N_READS} reads "
+            f"in {stats['map_s']:.2f}s = {stats['reads_per_s']:.0f} reads/s "
+            f"(load {stats['load_s']:.1f}s: {qb}not counted); peak "
+            f"{peak / 2**30:.2f} GiB; aligned {frac_al:.4f}, correct "
+            f"{frac_ok:.4f} of aligned; overflowed {stats['overflowed']}; "
+            f"launches {launches}; K3 calls (NB, Lp, Lt, band_w, lanes with "
+            f"a pattern) {calls['K3'][:3]}..., K2 calls "
+            f"{sorted(set(c[:4] for c in calls['K2']))}")
+        if frac_al < 0.95 or frac_ok < 0.90:
+            fail(f"{tag} accuracy bars missed: aligned {frac_al}, correct "
+                 f"{frac_ok}")
+        same_sam(f"{d}/g.npz", ["-U", f"{d}/modes_sub.fq"],
+                 f"{d}/{tag}_sub.sam", [], MODE_SUB, tag, tool=tool)
+        rows[f"K3_{tag}"] = hold_call(torch, tag, "K3", kept["K3"])
+        rows[f"K2_{tag}"] = hold_call(torch, tag, "K2", kept["K2"])
+        out[tag] = {"launches": launches, "stats": stats, "aligned": frac_al,
+                    "correct": frac_ok, "peak_bytes": peak,
+                    "k3_calls": calls["K3"], "k2_calls": calls["K2"],
+                    **({"qgram_build_s": build_ms["build"] / 1e3}
+                       if tag == "qmap" else {})}
+    torch.cuda.empty_cache()
+    stages = mem_stage_breakdown(torch, np, f"{d}/g.npz", f"{d}/r.fq")
+    log("[mem_qmap] one 4096-read mem_map batch, ms per stage (synchronised,"
+        " median of 3): " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in stages.items()))
+    secs = time.perf_counter() - t_phase
+    log(f"[mem_qmap] phase {secs:.1f}s")
+    return dict(out, rows=rows, stages_ms=stages, seconds=secs)
 
 
 def phase_pe_local(torch, np):
@@ -2735,17 +2884,7 @@ def sharded_stage_breakdown(torch, np, m, reads_fq):
         reads, lens, qmat, _ = pack_reads(seqs, quals)
         batches.append((names, reads, lens, qmat))
     t = {}
-
-    def timed(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            key = name(a) if callable(name) else name
-            t[key] = t.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-        return run
+    timed = stage_timer(torch, t)
 
     def shard_of(a):
         return "candidate stage, shard " + str(
@@ -3101,6 +3240,8 @@ def main():
         result["n1"] = phase_n1(torch, np, genome, sim)
         torch.cuda.empty_cache()
         result["all"] = phase_all(torch, np, sim)
+        torch.cuda.empty_cache()
+        result["mem_qmap"] = phase_mem_qmap(torch, np, sim)
         del sim
         torch.cuda.empty_cache()
         result["pe"] = phase_pe(torch, np, genome)

@@ -370,7 +370,10 @@ def take_at(a, idx):
 
 
 def top2_finish(cands, lens, params: MapperParams):
-    """Top-2 reduce across strands and candidates + MAPQ."""
+    """Top-2 reduce across strands and candidates + MAPQ.  A candidate
+    dict without the budget keys (the MEM and q-gram steps pass
+    extend_candidates' output) reports no locate drop and no overflow,
+    as the reference does."""
     C = params.max_candidates
     bi, best, second = top2(cands["score"])
     has_second = second > NEG_INF // 2
@@ -394,8 +397,12 @@ def top2_finish(cands, lens, params: MapperParams):
         "t_end": take(cands["t_end"]),
         "p_end": take(cands["p_end"]),
         "mapq": mapq.to(torch.int32),
-        "locate_dropped": cands["locate_dropped"],
-        "overflow": cands["overflow"],
+        "locate_dropped": cands.get(
+            "locate_dropped", torch.zeros((), dtype=torch.int64,
+                                          device=lens.device)),
+        "overflow": cands.get(
+            "overflow", torch.zeros(lens.shape, dtype=torch.bool,
+                                    device=lens.device)),
     }
 
 
@@ -637,13 +644,18 @@ class Mapper:
         # uniform-length batches take the flip-and-shift revcomp path
         ushift = (seqs.shape[1] - int(lens.max())
                   if len(lens) and lens.min() == lens.max() else -1)
-        fwd = map_batch(self.fm, self.ssa, self.gwords, jr, jl, jq,
-                        params=params, lut=self.lut, uniform_shift=ushift,
-                        genome=self.genome)
+        fwd = self._forward(jr, jl, jq, uniform_shift=ushift, params=params)
         res, walk = traceback_walk_batch(
             self.genome, self.n, jr, jl, jq, fwd["win_start"],
             fwd["strand"], params=params, active=fwd["aligned"])
         return (seqs, lens, quals, fwd, res, walk, R)
+
+    def _forward(self, jr, jl, jq, uniform_shift: int = -1, params=None):
+        """The forward mapping step of one uploaded chunk; the MEM and
+        q-gram mappers swap the seeding here."""
+        return map_batch(self.fm, self.ssa, self.gwords, jr, jl, jq,
+                         params=params or self.params, lut=self.lut,
+                         uniform_shift=uniform_shift, genome=self.genome)
 
     def _escalated_params(self, round_i: int = 2, base=None):
         """Round-``round_i`` budgets (>= 2), each round a superset of the

@@ -10,8 +10,10 @@ sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
 map_reads (CUDA SAM = CPU SAM), -S *.bam (CUDA BAM = CPU BAM), and the
 alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
 32 768 winners in LOCAL, hamming_backtrack_1 (-N 1's seed search) and
-the SAM of --local, -N 1 and -a (CUDA SAM = CPU SAM), and single-end
-map_reads on a sharded index (CUDA SAM = CPU SAM).
+the SAM of --local, -N 1 and -a (CUDA SAM = CPU SAM), single-end
+map_reads on a sharded index (CUDA SAM = CPU SAM), and the MEM and
+q-gram mappers: find_mems (CUDA = CPU) and the SAM of mem_map and qmap
+(CUDA SAM = CPU SAM).
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -799,3 +801,67 @@ def test_sharded_se_sam_on_cuda_equals_cpu(cuda, tmp_path):
     assert sams["cuda"] == sams["cpu"]
     recs = [ln.split("\t") for ln in sams["cuda"] if not ln.startswith("@")]
     assert sum(not int(r[1]) & 4 for r in recs) > 240
+
+
+def test_find_mems_on_cuda_equals_cpu(cuda):
+    """fmindex.mem.find_mems (the MEM mapper's SMEM search): its four
+    outputs on the card equal the CPU's, on both strands of 256 reads
+    with Ns, ragged lengths and reads absent from the genome."""
+    from nvbio_tpu_torch.fmindex.build import build_fm_arrays
+    from nvbio_tpu_torch.fmindex.mem import find_mems
+    from nvbio_tpu_torch.io.index_file import index_from_numpy
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    g = random_genome(200_000, seed=13)
+    sim = simulate_reads(g, 256, 100, error_rate=0.02, seed=14)
+    reads = np.full((256, 128), 7, np.int8)
+    reads[:, :100] = sim["seqs"]
+    reads[::7, 31] = 4
+    reads[200:, :100] = np.random.default_rng(15).integers(0, 4, (56, 100))
+    lens = np.full(256, 100, np.int64)
+    lens[::5] = 77
+    reads[::5, 77:] = 7
+    fm_f, ssa_f = build_fm_arrays(g, sa_sample=4)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        fm, _, _, _ = index_from_numpy(fm_f, ssa_f, g, device=dev)
+        got[dev.type] = find_mems(fm, torch.from_numpy(reads).to(dev),
+                                  torch.from_numpy(lens).to(dev), 128, 19)
+    for k in got["cpu"]:
+        assert torch.equal(got["cuda"][k].cpu(), got["cpu"][k]), k
+    assert int(got["cpu"]["smem"].sum()) > 150
+
+
+@pytest.mark.parametrize("tool,flags", [("mem_map", []),
+                                        ("mem_map", ["--local"]),
+                                        ("qmap", []),
+                                        ("qmap", ["-q", "12", "--stride",
+                                                  "5"])],
+                         ids=["mem", "mem-local", "qmap", "qmap-q12"])
+def test_seed_mapper_sam_on_cuda_equals_cpu(cuda, tmp_path, tool, flags):
+    """mem_map and qmap on the golden single-end dataset: --device cuda
+    SAM = --device cpu SAM, K2 and K3 launched on the card."""
+    import importlib
+
+    from test_torch_golden import write_golden_dataset
+
+    from nvbio_tpu_torch.tools.build_index import main as build
+
+    main = importlib.import_module(f"nvbio_tpu_torch.tools.{tool}").main
+    write_golden_dataset(tmp_path)
+    build([str(tmp_path / "g.fa"), str(tmp_path / "g.npz")])
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        banded_dp.reset_launch_counts()
+        assert main(["-x", str(tmp_path / "g.npz"), "-U",
+                     str(tmp_path / "r.fq"), "-S",
+                     str(tmp_path / f"{dev}.sam"), "--device", dev,
+                     "--batch", "128", *flags]) == 0
+        if dev == "cuda":
+            counts = {k: f.launches for k, f in banded_dp.KERNELS.items()}
+            assert counts["K2"] > 0 and counts["K3"] > 0, counts
+        sams[dev] = [ln for ln in open(tmp_path / f"{dev}.sam")
+                     if not ln.startswith("@PG")]
+    assert sams["cuda"] == sams["cpu"]
+    recs = [ln.split("\t") for ln in sams["cuda"] if not ln.startswith("@")]
+    assert sum(not int(r[1]) & 4 for r in recs) > 270

@@ -3,8 +3,9 @@ none) and keeps its own copies of the host code it needs: in a
 subprocess whose import system refuses ``jax`` and every ``nvbio_tpu``
 module, import every ``nvbio_tpu_torch`` module, build an index and map
 a tiny single-end dataset (with --un, --al, --rg-id, --stats and --html)
-and a tiny paired-end dataset on the CPU.  Also: the CLI's device and
-unported-flag errors."""
+and a tiny paired-end dataset on the CPU, and the single-end reads
+through mem_map and qmap.  Also: the CLIs' device and unported-flag
+errors."""
 
 import os
 import subprocess
@@ -97,6 +98,20 @@ GUARDED = textwrap.dedent("""
 
     print("sharded", records("sh.sam") == records("o.sam"),
           records("shpe.sam") == records("pe.sam"))
+
+    # the MEM and q-gram mappers' CLIs on the same reads
+    from nvbio_tpu_torch.tools.mem_map import main as mem_map
+    from nvbio_tpu_torch.tools.qmap import main as qmap
+    n_al = []
+    for name, tool in (("mem", mem_map), ("qmap", qmap)):
+        assert tool(["-x", f"{out}/g.npz", "-U", f"{out}/r.fq", "-S",
+                     f"{out}/{name}.sam", "--device", "cpu", "--batch",
+                     "32"]) == 0
+        n_al.append(sum(l.split("\t")[1] != "4" for l in records(
+            f"{name}.sam")))
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
+    print("seed_mappers", *n_al)
 """)
 
 
@@ -113,6 +128,8 @@ def test_port_runs_without_jax(tmp_path):
     _, n_rec, _, n_proper = lines[2].split()
     assert int(n_rec) == 40 and int(n_proper) >= 36
     assert lines[3] == "sharded True True"  # the same SAM as unsharded
+    _, n_mem, n_qmap = lines[4].split()
+    assert int(n_mem) >= 36 and int(n_qmap) >= 36
 
 
 def _tiny_index(tmp_path):
@@ -143,6 +160,25 @@ def test_map_reads_cuda_raises_without_cuda(tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("tool", ["mem_map", "qmap"])
+def test_seed_mappers_cuda_raise_without_cuda(tmp_path, tool):
+    """mem_map and qmap take --device cuda by default and never fall back
+    to the CPU."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    main = importlib.import_module(f"nvbio_tpu_torch.tools.{tool}").main
+    args = _tiny_index(tmp_path)
+    for extra in (["--device", "cuda"], []):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(args + extra)
+    assert main(args + ["--device", "cpu"]) == 0
+    recs = [ln.split("\t") for ln in open(tmp_path / "o.sam")
+            if not ln.startswith("@")]
+    assert len(recs) == 1 and recs[0][3] == "101"
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "on"]], ids=["mesh"])
