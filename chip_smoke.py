@@ -56,6 +56,17 @@ failure:
    breakdown of one batch (with the shapes of the extension's K3 calls
    and their lanes with a pattern), and the first 4096 reads re-mapped
    with --device cpu to identical SAM lines;
+7b. index construction on the card (phase_sufsort): build_index
+   --algorithm device --device cuda at E. coli K-12's length (4 641 652
+   bp, whole-text device prefix doubling) against --algorithm sais,
+   every .npz array equal; build_index --algorithm device --device-occ
+   on the chr20-length genome (the bucketed sort and the device occ
+   tables) against phase 7's SA-IS g.npz; suffix_array_bucketed on a
+   16 Mbp repeat-structured text (at least one compacted doubling
+   round) against SA-IS; set_bwt --device cuda of phase 7's 100 000
+   reads against --device cpu, with the A/C/G/T/$ counts the reads
+   give; host-clock seconds and Mbp/s (Mbases/s) beside SA-IS's on the
+   same texts, and peak device bytes;
 8. the long-read path at real size: 20 000 simulated 2 kb reads on the
    same index, map_reads --max-read-len 2048 --band 63 --batch 1024
    --device cuda with the counts reset just before; K4 launched,
@@ -226,6 +237,10 @@ SHARD_BP, SHARD_OVERLAP, SHARD_PROCS = 16_777_216, 1024, 4
 N_SHARD_PAIRS, SHARD_CPU_READS, SHARD_CPU_PAIRS = 4 * 4096, 1024, 256
 # the one-device sharded mapper whatever the host's device count
 MESH_OFF = ["--mesh", "off"]
+# the suffix-sort phase: a seeded random genome of E. coli K-12 MG1655's
+# length (BASELINE configs 1-2; whole-text device doubling), and a
+# repeat-structured text (the bucketed sort's compacted doubling)
+ECOLI_BP, REPEATS_BP = 4_641_652, 16_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
@@ -2010,6 +2025,224 @@ def phase_real_size(torch, np):
             "k3_calls": k3_calls}, g, sim
 
 
+def run_captured(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its stdout and stderr captured: (what it
+    returned, host seconds, the captured text); the text is logged
+    after."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        ret = fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    text = buf.getvalue()
+    log(text.rstrip())
+    return ret, dt, text
+
+
+def npz_diff(np, got, want):
+    """Keys of two .npz files whose arrays differ (or exist in one)."""
+    with np.load(got) as a, np.load(want) as b:
+        keys = set(a.files) | set(b.files)
+        return sorted(k for k in keys if k not in a.files
+                      or k not in b.files or a[k].dtype != b[k].dtype
+                      or not np.array_equal(a[k], b[k]))
+
+
+def phase_sufsort(torch, np, g):
+    """The index build on the card: build_index --algorithm device at
+    E. coli's length (whole-text doubling) against an SA-IS build;
+    --algorithm device --device-occ on the chr20-length genome (the
+    bucketed sort and the device occ tables) against the real-size
+    phase's g.npz; suffix_array_bucketed on a repeat-structured text
+    (at least one compacted doubling round) against SA-IS; set_bwt of
+    the short-read run's reads on cuda against cpu.  Host-clock seconds
+    (the functions return numpy, so they synchronise), SA-IS on the
+    same texts in the same process, peak device bytes."""
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import read_fastq_packed
+    from nvbio_tpu_torch.native import sais_native
+    from nvbio_tpu_torch.sufsort import (suffix_array_bucketed,
+                                         suffix_array_device)
+    from nvbio_tpu_torch.sufsort import set_bwt_device
+    from nvbio_tpu_torch.sufsort.bucketed import _host_bucket_keys
+    from nvbio_tpu_torch.tools import build_index
+    from nvbio_tpu_torch.tools.set_bwt import main as set_bwt
+    from nvbio_tpu_torch.utils.simulate import (random_genome,
+                                                repeat_structured_genome)
+
+    d = os.path.join(WORK, "chr20len")
+    out = {}
+
+    def timed(fn, *a, **k):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        return r, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    def cli_sort_s(args):
+        """build_index(args) captured, with its suffix sort timed
+        unrounded: (build seconds, sort seconds, captured text)."""
+        sort_s = []
+
+        def timed_sort(*a):
+            t0 = time.perf_counter()
+            sa = sort(*a)
+            sort_s.append(time.perf_counter() - t0)
+            return sa
+
+        sort = build_index.suffix_sort
+        build_index.suffix_sort = timed_sort
+        try:
+            _, build_s, text = run_captured(build_index.main, args)
+        finally:
+            build_index.suffix_sort = sort
+        if "suffix sort (device): " not in text or len(sort_s) != 1:
+            fail("build_index printed no 'suffix sort (device)' line")
+        return build_s, sort_s[0], text
+
+    # 1. whole-text device doubling at E. coli's length
+    e = random_genome(ECOLI_BP, seed=SEED + 40)
+    write_fasta(f"{d}/ecoli.fa", [("ecoli_random", e)])
+    sa_host, host_s, _ = timed(sais_native, e)
+    suffix_array_device(e[:100_000], DEV)  # warm the sort's first call
+    sa_dev, dev_s, peak = timed(suffix_array_device, e, DEV)
+    if not np.array_equal(sa_dev, sa_host):
+        fail("suffix_array_device differs from SA-IS at E. coli's length")
+    build_dev_s, cli_s, text = cli_sort_s([
+        f"{d}/ecoli.fa", f"{d}/ecoli_dev.npz", "--algorithm", "device",
+        "--device", DEV, "--sa-sample", "4", "--lut-k", "11"])
+    _, build_sais_s, _ = run_captured(build_index.main, [
+        f"{d}/ecoli.fa", f"{d}/ecoli.npz", "--algorithm", "sais",
+        "--sa-sample", "4", "--lut-k", "11"])
+    if "[sufsort] chunk" in text:
+        fail("build_index --algorithm device took the bucketed sort at "
+             f"{ECOLI_BP} bp")
+    bad = npz_diff(np, f"{d}/ecoli_dev.npz", f"{d}/ecoli.npz")
+    if bad:
+        fail(f"--algorithm device .npz differs from SA-IS's in {bad}")
+    out["ecoli"] = {"bp": ECOLI_BP, "device_s": dev_s, "sais_s": host_s,
+                    "device_mbp_s": ECOLI_BP / dev_s / 1e6,
+                    "sais_mbp_s": ECOLI_BP / host_s / 1e6,
+                    "peak_bytes": peak, "cli_sort_s": cli_s,
+                    "build_device_s": build_dev_s,
+                    "build_sais_s": build_sais_s}
+    log(f"[sufsort] {ECOLI_BP} bp: suffix_array_device {dev_s:.3f}s "
+        f"({ECOLI_BP / dev_s / 1e6:.1f} Mbp/s, peak {peak / 2**20:.0f} "
+        f"MiB) vs SA-IS {host_s:.3f}s ({ECOLI_BP / host_s / 1e6:.1f} "
+        f"Mbp/s); build_index --algorithm device {build_dev_s:.1f}s vs "
+        f"sais {build_sais_s:.1f}s; every .npz array equal")
+    del e, sa_host, sa_dev
+
+    # 2. the bucketed sort and the device occ tables at chr20's length
+    torch.cuda.reset_peak_memory_stats()
+    build_s, sort_s, text = cli_sort_s([
+        f"{d}/g.fa", f"{d}/g_dev.npz", "--algorithm", "device",
+        "--device-occ", "--device", DEV, "--sa-sample", "4",
+        "--lut-k", "11"])
+    peak = torch.cuda.max_memory_allocated()
+    n_chunks = text.count("[sufsort] chunk")
+    if not n_chunks:
+        fail("build_index --algorithm device ran no bucketed chunk at "
+             f"{len(g)} bp")
+    bad = npz_diff(np, f"{d}/g_dev.npz", f"{d}/g.npz")
+    if bad:
+        fail(f"--algorithm device --device-occ .npz differs from the "
+             f"SA-IS build's in {bad}")
+    _, host_s, _ = timed(sais_native, g)
+    # the bucketed sort's host bucketing alone: the 8-symbol keys and
+    # their stable argsort, and the same order from one np.sort of
+    # (key << 32 | position), unique int64s
+    t0 = time.perf_counter()
+    key8 = _host_bucket_keys(g)
+    keys_s = time.perf_counter() - t0
+    order = np.argsort(key8, kind="stable")
+    argsort_s = time.perf_counter() - t0 - keys_s
+    t0 = time.perf_counter()
+    by_sort = np.sort((key8.astype(np.int64) << 32)
+                      | np.arange(len(g), dtype=np.int64)) & 0xFFFFFFFF
+    packed_s = time.perf_counter() - t0
+    if not np.array_equal(by_sort, order):
+        fail("np.sort of (key << 32 | position) gives another order than "
+             "the stable argsort")
+    del key8, order, by_sort
+    out["chr20"] = {"bp": len(g), "cli_sort_s": sort_s,
+                    "device_mbp_s": len(g) / sort_s / 1e6,
+                    "sais_s": host_s, "sais_mbp_s": len(g) / host_s / 1e6,
+                    "build_s": build_s, "chunks": n_chunks,
+                    "peak_bytes": peak, "host_keys_s": keys_s,
+                    "host_argsort_s": argsort_s,
+                    "host_packed_sort_s": packed_s}
+    log(f"[sufsort] {len(g)} bp: bucketed device sort {sort_s:.1f}s "
+        f"({len(g) / sort_s / 1e6:.2f} Mbp/s, {n_chunks} chunks run) vs "
+        f"SA-IS {host_s:.1f}s ({len(g) / host_s / 1e6:.2f} Mbp/s); "
+        f"build_index --algorithm device --device-occ {build_s:.1f}s, "
+        f"peak {peak / 2**20:.0f} MiB; every .npz array equal to g.npz's; "
+        f"its host bucketing alone: keys {keys_s:.2f}s + stable argsort "
+        f"{argsort_s:.2f}s (np.sort of packed (key, position) "
+        f"{packed_s:.2f}s, the same order)")
+
+    # 3. repeats: the compacted doubling
+    t = repeat_structured_genome(REPEATS_BP, seed=SEED + 41)[0]
+    torch.cuda.reset_peak_memory_stats()
+    sa_dev, dev_s, text = run_captured(suffix_array_bucketed, t,
+                                       verbose=True, device=DEV)
+    peak = torch.cuda.max_memory_allocated()
+    n_chunks = text.count("[sufsort] chunk")
+    n_double = text.count("[sufsort] doubling")
+    sa_host, host_s, _ = timed(sais_native, t)
+    if not np.array_equal(sa_dev, sa_host):
+        fail("suffix_array_bucketed differs from SA-IS on the "
+             "repeat-structured text")
+    if n_double < 1:
+        fail("the repeat-structured text ran no compacted doubling round")
+    out["repeats"] = {"bp": REPEATS_BP, "device_s": dev_s, "sais_s": host_s,
+                      "device_mbp_s": REPEATS_BP / dev_s / 1e6,
+                      "sais_mbp_s": REPEATS_BP / host_s / 1e6,
+                      "chunks": n_chunks, "doubling_rounds": n_double,
+                      "peak_bytes": peak}
+    log(f"[sufsort] {REPEATS_BP} bp repeat-structured: bucketed {dev_s:.1f}s "
+        f"({REPEATS_BP / dev_s / 1e6:.2f} Mbp/s; {n_chunks} chunks, "
+        f"{n_double} doubling rounds, peak {peak / 2**20:.0f} MiB) vs SA-IS "
+        f"{host_s:.1f}s; equal")
+    del t, sa_dev, sa_host
+
+    # 4. the set-BWT of the short-read run's reads: the CLI on cuda and
+    # on cpu, and the function alone on the card
+    _, cli_s, text = run_captured(set_bwt, [
+        f"{d}/r.fq", f"{d}/bwt_gpu.npy", "--max-len", "100", "--device",
+        DEV])
+    _, cpu_s, _ = run_captured(set_bwt, [
+        f"{d}/r.fq", f"{d}/bwt_cpu.npy", "--max-len", "100", "--device",
+        "cpu"])
+    bwt = np.load(f"{d}/bwt_gpu.npy")
+    if not np.array_equal(bwt, np.load(f"{d}/bwt_cpu.npy")):
+        fail("set_bwt --device cuda differs from --device cpu")
+    _, reads, lens, _ = read_fastq_packed(f"{d}/r.fq", max_len=100)
+    reads = np.where(reads < 4, reads, 0).astype(np.uint8)
+    live = np.arange(reads.shape[1])[None, :] < lens[:, None]
+    want = np.append(np.bincount(reads[live], minlength=4), len(lens))
+    got = np.bincount(bwt, minlength=5)
+    if not np.array_equal(got, want):
+        fail(f"set-BWT symbol counts {got} != the reads' {want}")
+    again, dev_s, peak = timed(set_bwt_device, reads, lens, DEV)
+    if not np.array_equal(again, bwt):
+        fail("set_bwt_device differs from the set_bwt CLI's output")
+    n_bases = int(lens.sum())
+    out["set_bwt"] = {"reads": len(lens), "bases": n_bases,
+                      "suffixes": len(bwt), "device_s": dev_s,
+                      "mbases_s": n_bases / dev_s / 1e6, "cli_s": cli_s,
+                      "cli_cpu_s": cpu_s, "peak_bytes": peak}
+    log(f"[sufsort] set_bwt: {len(lens)} reads, {len(bwt)} suffixes; "
+        f"set_bwt_device {dev_s:.3f}s ({n_bases / dev_s / 1e6:.1f} "
+        f"Mbases/s, peak {peak / 2**20:.0f} MiB); the CLI (FASTQ read and "
+        f".npy write included) cuda {cli_s:.1f}s, cpu {cpu_s:.1f}s; equal; "
+        f"A C G T $ counts {got.tolist()}")
+    return out
+
+
 def phase_long_reads(torch, np, g):
     """20 000 reads of 2 kb on the chr20-length index through map_reads
     --max-read-len 2048 --band 63 --batch 1024 --device cuda."""
@@ -3234,6 +3467,8 @@ def main():
         result["golden_launches"] = phase_golden(torch)
         result["golden_pe_launches"] = phase_golden_pe(torch)
         result["real"], genome, sim = phase_real_size(torch, np)
+        torch.cuda.empty_cache()
+        result["sufsort"] = phase_sufsort(torch, np, genome)
         torch.cuda.empty_cache()
         result["local"] = phase_local(torch, np, sim)
         torch.cuda.empty_cache()

@@ -57,13 +57,17 @@ def _shard_bounds(n: int, shard_bp: int, overlap: int):
 def build_sharded_index(symbols: np.ndarray, shard_bp: int,
                         overlap: int = 1024, sa_sample: int = 16,
                         lut_k: int = 11, bi_sample: bool = False,
-                        n_procs: int = 1) -> ShardedIndex:
+                        n_procs: int = 1, occ_device: bool = False,
+                        device="cuda") -> ShardedIndex:
     """Split ``symbols`` into shards of ``shard_bp`` (each extended by
     ``overlap`` into the next, a tail no longer than the overlap folded
-    into the previous shard) and build every shard's index on the host,
-    as CPU tensors.  ``n_procs > 1`` builds shards in that many spawned
-    worker processes (the shards are independent), which run
-    ``fmindex.build.build_shard_arrays`` and load no torch."""
+    into the previous shard) and build every shard's index, as CPU
+    tensors.  ``n_procs > 1`` builds shards in that many spawned worker
+    processes (the shards are independent), which run
+    ``fmindex.build.build_shard_arrays`` on the host and load no torch.
+    ``occ_device`` computes each shard's occ tables on ``device`` in the
+    sequential build only: the pool's workers build them on the host,
+    as the reference's pool worker drops ``occ_device``."""
     bounds = _shard_bounds(len(symbols), shard_bp, overlap)
     jobs = [(symbols[s:e], s, sa_sample, lut_k, bi_sample)
             for s, e in bounds]
@@ -72,7 +76,7 @@ def build_sharded_index(symbols: np.ndarray, shard_bp: int,
                                  mp_context=mp.get_context("spawn")) as ex:
             outs = list(ex.map(build_shard_arrays, jobs))
     else:
-        outs = [build_shard_arrays(job) for job in jobs]
+        outs = [build_shard_arrays(job, occ_device, device) for job in jobs]
     shards = []
     for (fm_f, ssa_f, lut), (s, e) in zip(outs, bounds):
         fm, ssa, _, lut = index_from_numpy(

@@ -865,3 +865,72 @@ def test_seed_mapper_sam_on_cuda_equals_cpu(cuda, tmp_path, tool, flags):
     assert sams["cuda"] == sams["cpu"]
     recs = [ln.split("\t") for ln in sams["cuda"] if not ln.startswith("@")]
     assert sum(not int(r[1]) & 4 for r in recs) > 270
+
+
+def _sufsort_texts():
+    """A random text, a tandem + homopolymer one, and a repeat-structured
+    genome (which reaches the bucketed sort's compacted doubling)."""
+    from nvbio_tpu_torch.utils.simulate import repeat_structured_genome
+
+    rng = np.random.default_rng(90)
+    unit = rng.integers(0, 4, 7).astype(np.uint8)
+    return {"random": rng.integers(0, 4, 200_000).astype(np.uint8),
+            "tandem": np.concatenate([
+                np.tile(unit, 4000), np.zeros(5000, np.uint8),
+                rng.integers(0, 4, 10_000).astype(np.uint8)]),
+            "repeats": repeat_structured_genome(400_000, seed=7)[0]}
+
+
+@pytest.mark.parametrize("name", ["random", "tandem", "repeats"])
+def test_suffix_sorts_on_cuda_equal_cpu(cuda, name, capsys):
+    """suffix_array_device and suffix_array_bucketed (chunk_cap 1 << 16)
+    on cuda = on cpu = SA-IS."""
+    from nvbio_tpu_torch.sufsort import (suffix_array, suffix_array_bucketed,
+                                         suffix_array_device)
+
+    t = _sufsort_texts()[name]
+    want = suffix_array(t)
+    for dev in ("cuda", "cpu"):
+        np.testing.assert_array_equal(suffix_array_device(t, dev), want)
+        np.testing.assert_array_equal(
+            suffix_array_bucketed(t, chunk_cap=1 << 16, verbose=True,
+                                  device=dev), want)
+    if name == "repeats":
+        assert "[sufsort] doubling k=64" in capsys.readouterr().out
+
+
+def test_set_bwt_on_cuda_equals_cpu(cuda):
+    from nvbio_tpu_torch.sufsort import set_bwt_device, set_bwt_oracle
+
+    rng = np.random.default_rng(91)
+    reads = rng.integers(0, 4, (5000, 100)).astype(np.uint8)
+    lens = rng.integers(1, 101, 5000).astype(np.int32)
+    reads[4000:] = reads[0]  # duplicate reads: the read-id tie-break
+    lens[4000:] = 100
+    got = set_bwt_device(reads, lens, "cuda")
+    np.testing.assert_array_equal(got, set_bwt_device(reads, lens, "cpu"))
+    np.testing.assert_array_equal(
+        set_bwt_device(reads[:40], lens[:40], "cuda"),
+        set_bwt_oracle(reads[:40], lens[:40]))
+    assert np.array_equal(np.bincount(got, minlength=5)[4:], [5000])
+
+
+def test_occ_tables_on_cuda_equal_cpu(cuda, monkeypatch):
+    """occ_tables_device on cuda = on cpu = the host tables, with 4 096-
+    block chunks (the carry crosses chunks)."""
+    from nvbio_tpu_torch.basic.packed import pack_2bit
+    from nvbio_tpu_torch.fmindex import build
+
+    monkeypatch.setattr(build, "OCC_CHUNK_BLOCKS", 1 << 12)
+    g = np.random.default_rng(92).integers(0, 4, 2_000_000).astype(np.uint8)
+    bwt, _ = build.bwt_from_sa(g, build.suffix_array(g))
+    m = len(g) + 1
+    n_blocks = (m + build.BLOCK - 1) // build.BLOCK + 1
+    bwt_pad = np.zeros(n_blocks * build.BLOCK, np.uint8)
+    bwt_pad[:m] = bwt
+    words = pack_2bit(bwt_pad).reshape(n_blocks, build.WORDS)
+    got = build.occ_tables_device(words, "cuda")
+    for a, b, c in zip(got, build.occ_tables_device(words, "cpu"),
+                       build._occ_tables_host(bwt_pad, n_blocks)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)

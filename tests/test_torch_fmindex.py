@@ -10,9 +10,11 @@ from nvbio_tpu.fmindex import build as jax_build
 from nvbio_tpu.fmindex.index import backward_search as jax_backward_search
 from nvbio_tpu.fmindex.index import locate as jax_locate
 from nvbio_tpu.io import index_file as jax_index_file
+from nvbio_tpu_torch import native as port_native
 from nvbio_tpu_torch.fmindex import build
 from nvbio_tpu_torch.fmindex.index import backward_search, locate, rank
 from nvbio_tpu_torch.io import index_file
+from nvbio_tpu_torch.sufsort import sa
 
 N_BP = 20_000
 LUT_K = 6
@@ -45,9 +47,11 @@ def test_build_arrays_match_jax(genome, native, bi, monkeypatch):
                                                   bi_sample=bi)
     want_lut = jax_build.build_kmer_lut(genome, k=LUT_K)
     if not native:
-        for name in ("sais_native", "ssa_build_native", "kmer_hist_native",
+        for name in ("ssa_build_native", "kmer_hist_native",
                      "fm_bwt_occ_native"):
             monkeypatch.setattr(build, name, lambda *a, **k: None)
+        # sufsort.sa (the suffix sort) imports SA-IS at each call
+        monkeypatch.setattr(port_native, "sais_native", lambda *a, **k: None)
     got_fm, got_ssa = build.build_fm_arrays(genome, sa_sample=4,
                                             bi_sample=bi)
     _assert_fields_equal(got_fm, want_fm)
@@ -57,8 +61,7 @@ def test_build_arrays_match_jax(genome, native, bi, monkeypatch):
 
 def test_suffix_array_fallback_matches_native(genome):
     t = genome[:3000]
-    np.testing.assert_array_equal(build.suffix_array_pd(t),
-                                  build.suffix_array(t))
+    np.testing.assert_array_equal(sa.suffix_array_pd(t), sa.suffix_array(t))
 
 
 def test_jax_written_npz_loads(tmp_path, genome, jax_index):
@@ -125,8 +128,7 @@ def test_locate_and_rank_match_jax(genome, jax_index):
     want = jax_locate(fm, ssa, jnp.asarray(rows), k_sample=4)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # every position is a true suffix-array entry of its row
-    sa = build.suffix_array(genome)
-    sa_full = np.concatenate([[N_BP], sa])
+    sa_full = np.concatenate([[N_BP], sa.suffix_array(genome)])
     np.testing.assert_array_equal(got.numpy(), sa_full[rows])
     from nvbio_tpu.fmindex.index import rank as jax_rank
     c = rng.integers(0, 4, 2000)

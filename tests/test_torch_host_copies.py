@@ -1,9 +1,11 @@
 """The port's copies of the host code (``nvbio_tpu_torch.basic``,
-``.io``, ``.native``, ``.utils``, ``.parallel``, and the sharded index's
+``.io``, ``.native``, ``.utils``, ``.parallel``, ``.sufsort.sa``, the
+bucketed sort's host helpers, the set-BWT oracle and the sharded index's
 ``_shard_bounds``) give the originals' outputs on seeded inputs.  The copies exist so that the port imports nothing of
 ``nvbio_tpu``; this holds them to the reference they were copied from."""
 
 import gzip
+import inspect
 
 import numpy as np
 import pytest
@@ -14,6 +16,9 @@ import nvbio_tpu.io.genome as ref_genome
 import nvbio_tpu.io.sam as ref_sam
 import nvbio_tpu.native as ref_native
 import nvbio_tpu.parallel.distributed as ref_dist
+import nvbio_tpu.sufsort.bucketed as ref_bucketed
+import nvbio_tpu.sufsort.device as ref_sufdev
+import nvbio_tpu.sufsort.sa as ref_sa
 import nvbio_tpu.utils.html as ref_html
 import nvbio_tpu.utils.stats as ref_stats
 import nvbio_tpu.utils.simulate as ref_simulate
@@ -23,6 +28,9 @@ import nvbio_tpu_torch.io.genome as port_genome
 import nvbio_tpu_torch.io.sam as port_sam
 import nvbio_tpu_torch.native as port_native
 import nvbio_tpu_torch.parallel.distributed as port_dist
+import nvbio_tpu_torch.sufsort.bucketed as port_bucketed
+import nvbio_tpu_torch.sufsort.device as port_sufdev
+import nvbio_tpu_torch.sufsort.sa as port_sa
 import nvbio_tpu_torch.utils.html as port_html
 import nvbio_tpu_torch.utils.stats as port_stats
 import nvbio_tpu_torch.utils.simulate as port_simulate
@@ -98,6 +106,56 @@ def test_native_copies_match(name):
 def test_shard_bounds_copy_matches(n, shard_bp, overlap):
     _equal(port_sharded._shard_bounds(n, shard_bp, overlap),
            ref_sharded._shard_bounds(n, shard_bp, overlap))
+
+
+def _sufsort_text(i):
+    t = _text(11 + i, 5_000)
+    if i == 1:  # a tandem array and a homopolymer run
+        t[1000:3000] = np.tile(t[:5], 400)
+        t[3000:3500] = 2
+    return t
+
+
+def _bwt_of(mod, t):
+    return mod.bwt_from_sa(t, ref_sa.suffix_array(t))
+
+
+def _read_set(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4, (20, 12)).astype(np.uint8),
+            rng.integers(1, 13, 20).astype(np.int32))
+
+
+SUFSORT_COPIES = {  # (reference module, port module, port's function)
+    "sa.suffix_array": (ref_sa, port_sa, lambda m, i: m.suffix_array(
+        _sufsort_text(i))),
+    "sa.suffix_array_pd": (ref_sa, port_sa, lambda m, i: m.suffix_array_pd(
+        _sufsort_text(i))),
+    "sa.bwt_from_sa": (ref_sa, port_sa, lambda m, i: _bwt_of(
+        m, _sufsort_text(i))),
+    "bucketed._pack_nibbles": (ref_bucketed, port_bucketed,
+                               lambda m, i: m._pack_nibbles(
+                                   _sufsort_text(i), 20)),
+    "bucketed._host_bucket_keys": (ref_bucketed, port_bucketed,
+                                   lambda m, i: m._host_bucket_keys(
+                                       _sufsort_text(i))),
+    "device.set_bwt_oracle": (ref_sufdev, port_sufdev,
+                              lambda m, i: m.set_bwt_oracle(
+                                  *_read_set(i))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SUFSORT_COPIES))
+def test_sufsort_copies_match(name):
+    """The port's ``sufsort/sa.py`` and the host helpers of its device
+    sorts are the reference's functions line for line, with equal
+    outputs on a random and a repetitive input."""
+    ref, port, call = SUFSORT_COPIES[name]
+    fn = name.split(".")[1]
+    assert (inspect.getsource(getattr(port, fn))
+            == inspect.getsource(getattr(ref, fn)))
+    for i in range(2):
+        _equal(call(port, i), call(ref, i))
 
 
 def test_pack_2bit_copy_matches():

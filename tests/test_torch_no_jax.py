@@ -3,9 +3,10 @@ none) and keeps its own copies of the host code it needs: in a
 subprocess whose import system refuses ``jax`` and every ``nvbio_tpu``
 module, import every ``nvbio_tpu_torch`` module, build an index and map
 a tiny single-end dataset (with --un, --al, --rg-id, --stats and --html)
-and a tiny paired-end dataset on the CPU, and the single-end reads
-through mem_map and qmap.  Also: the CLIs' device and unported-flag
-errors."""
+and a tiny paired-end dataset on the CPU, the single-end reads through
+mem_map and qmap, build the index again with the device suffix sort and
+occ tables (--device cpu), and the reads' set-BWT.  Also: the CLIs'
+device and unported-flag errors."""
 
 import os
 import subprocess
@@ -112,6 +113,19 @@ GUARDED = textwrap.dedent("""
     assert not any(m in ("jax", "nvbio_tpu")
                    or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
     print("seed_mappers", *n_al)
+
+    # the device index build (sort and occ) and the read-set BWT, on the CPU
+    from nvbio_tpu_torch.tools.set_bwt import main as set_bwt
+    assert build([f"{out}/g.fa", f"{out}/gd.npz", "--lut-k", "8",
+                  "--algorithm", "device", "--device-occ", "--device",
+                  "cpu"]) == 0
+    assert set_bwt([f"{out}/r.fq", f"{out}/b.txt", "--device", "cpu"]) == 0
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
+    with np.load(f"{out}/g.npz") as za, np.load(f"{out}/gd.npz") as zb:
+        same = za.files == zb.files and all(
+            np.array_equal(za[k], zb[k]) for k in za.files)
+    print("device_build", same, open(f"{out}/b.txt").read().count("$"))
 """)
 
 
@@ -130,6 +144,7 @@ def test_port_runs_without_jax(tmp_path):
     assert lines[3] == "sharded True True"  # the same SAM as unsharded
     _, n_mem, n_qmap = lines[4].split()
     assert int(n_mem) >= 36 and int(n_qmap) >= 36
+    assert lines[5] == "device_build True 40"  # the same .npz; 40 reads
 
 
 def _tiny_index(tmp_path):
