@@ -160,14 +160,37 @@ failure:
    reads/s, peak memory, the q-gram index's build seconds, 1024 reads
    under --device cuda and --device cpu to identical SAM lines, and a
    per-stage breakdown of one mem_map batch (SMEM search, locate,
-   extension, top-2, traceback, host finish).
+   extension, top-2, traceback, host finish);
+24. protein SW (after the long-read run): protein_sw --device cuda over
+   64 query proteins against 2 048 targets of 50-1000 residues (half the
+   queries planted as ~30 % substituted copies in targets; BLOSUM62 at
+   10/1) with the counts reset just before: K5_matrix launched and
+   nothing else, every planted pair above its query's other pairs;
+   K5_matrix against its plain version on a strided 2 048-alignment
+   subset of the all-pairs batch (band_w = max(Lq, Lt)), the whole batch
+   against the CLI's scores; times, GCUPS over the Lq x Lt cells; the
+   CLI under --device cuda and --device cpu on an 8 x 64 subset, TSV
+   bytes equal;
+25. the wavelet-tree protein FM-index over an 11 M-residue text (host
+   build timed): 65 536 8-mer searches on the card equal to the CPU's
+   on the same index, the planted ones holding their text counts;
+26. the read corrector at E. coli's length, 30x of 100 bp reads with 1 %
+   substitutions: passes 1 and 2 at --log2-slots 24 and 28, rounds 1
+   and 2, with the per-base error before and after against the
+   simulated truth and reads/s; correct_reads --rounds 2 on 50 000
+   reads under --device cuda and --device cpu, FASTQ bytes equal;
+27. BWA interop at E. coli's length in two contigs with N runs:
+   build_index, bwa_export --reverse, bwa_import (the .bwt cross-check
+   passed), the imported .npz equal to the direct build's, and map_reads
+   --device cuda of 20 000 reads against both giving the same SAM.
 
 The last line is {"ok": true, "device": {...}}; the line before it
-lists the ported kernels (K1-K7, K5 as its score and its flag entry
-points) as JSON, with the launches of the path that runs each (K2, K3:
-the short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark;
-K5 with flags: the pass-3 run; K7: the int16 opt-in phase; the modes'
-runs must launch theirs too), the time
+lists the ported kernels (K1-K7, K5 as its score, its flag and its
+matrix-score entry points) as JSON, with the launches of the path that
+runs each (K2, K3: the short-read run; K4: the long-read run; K1, K5,
+K6: sw_benchmark; K5 with flags: the pass-3 run; K7: the int16 opt-in
+phase; K5_matrix: the protein_sw run; the modes' runs must launch
+theirs too), the time
 and plain time at the phase shapes (K2 and K3 at the short-read path's
 calls, phase 4b), and the least time the card could
 take for the same call (bound_ms: int32 operations over 132 SMs x 64
@@ -241,6 +264,19 @@ MESH_OFF = ["--mesh", "off"]
 # length (BASELINE configs 1-2; whole-text device doubling), and a
 # repeat-structured text (the bucketed sort's compacted doubling)
 ECOLI_BP, REPEATS_BP = 4_641_652, 16_000_000
+# protein_sw: query and target proteins of 50-1000 residues (the bulk of
+# UniProtKB), all pairs, and the strided subset K5_matrix is held on
+PROT_Q, PROT_T, PROT_MIN, PROT_MAX, PROT_HOLD = 64, 2_048, 50, 1_000, 2_048
+# the protein FM-index: a text of about a human proteome's total length,
+# and the 8-mer searches on it
+WFM_N, WFM_SEARCHES = 11_000_000, 65_536
+# the read corrector: coverage of the E. coli-length genome, the batch of
+# its library run, the sketch sized to that many k-mers (2^28 slots,
+# ~1.8 increments a slot against ~29 at the CLI's 2^24), the reads of
+# the CLI's cuda = cpu run
+CORR_COV, CORR_BATCH, CORR_BIG_SLOTS, CORR_CLI_READS = 30, 65_536, 28, 50_000
+# BWA interop: reads mapped against the imported and the direct index
+BWA_READS = 20_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
@@ -931,7 +967,7 @@ def phase_wide_band(torch, np):
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
         if counts != {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 0,
-                      "K5_dirs": 0, "K6": 0, "K7": 0}:
+                      "K5_dirs": 0, "K5_matrix": 0, "K6": 0, "K7": 0}:
             fail(f"band_w {LONG_W} calls did not all route to K4: {counts}")
         w1 = banded_score_batch(*args, **kw)
         w3 = banded_dp.banded_score_packed_plain(pats, plens, gwords, ws,
@@ -3298,6 +3334,394 @@ def phase_sharded(torch, np):
             "seconds": secs}
 
 
+def write_proteins(path, names, seqs):
+    from nvbio_tpu_torch.basic.alphabet import decode_protein
+
+    with open(path, "w") as f:
+        for name, s in zip(names, seqs):
+            f.write(f">{name}\n{decode_protein(s)}\n")
+
+
+def read_tsv_scores(np, path, nq, nt):
+    with open(path) as f:
+        rows = f.read().splitlines()[1:]
+    if len(rows) != nq * nt:
+        fail(f"{path}: {len(rows)} score rows for {nq} x {nt} alignments")
+    return np.array([int(r.rsplit("\t", 1)[1]) for r in rows]).reshape(nq, nt)
+
+
+def phase_protein(torch, np):
+    """protein_sw at a protein-search size: PROT_Q query proteins against
+    PROT_T targets, 50-1000 residues, half the queries planted as ~30 %
+    substituted copies inside targets; BLOSUM62 at the CLI's 10/1.  The
+    CLI with --device cuda and the counts reset just before (K5_matrix
+    launched, nothing else); every planted pair outscores its query's
+    other pairs; K5-matrix against its plain version on a strided
+    2 048-alignment subset of the all-pairs batch, and the whole batch
+    against the CLI's scores; the CLI under both devices on an 8 x 64
+    subset, TSV bytes equal."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch
+    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
+    from nvbio_tpu_torch.alignment.types import AlignmentType
+    from nvbio_tpu_torch.basic.alphabet import PROTEIN_X
+    from nvbio_tpu_torch.ops import banded_dp, wavefront_dp
+    from nvbio_tpu_torch.tools.protein_sw import main as protein_sw
+
+    d = os.path.join(WORK, "protein")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(SEED + 70)
+    Q, T = PROT_Q, PROT_T
+    qlens = rng.integers(PROT_MIN, PROT_MAX + 1, Q)
+    tlens = rng.integers(PROT_MIN, PROT_MAX + 1, T)
+    qs = [rng.integers(0, 20, n).astype(np.uint8) for n in qlens]
+    ts = [rng.integers(0, 20, n).astype(np.uint8) for n in tlens]
+    planted = dict(zip(range(0, Q, 2), rng.choice(T, Q // 2, replace=False)))
+    for i, j in planted.items():
+        seg = qs[i].copy()
+        sub = rng.random(len(seg)) < 0.3
+        seg[sub] = rng.integers(0, 20, int(sub.sum()))
+        if len(ts[j]) <= len(seg):
+            ts[j] = seg
+        else:
+            s = int(rng.integers(0, len(ts[j]) - len(seg) + 1))
+            ts[j][s:s + len(seg)] = seg
+    qn, tn = [f"q{i}" for i in range(Q)], [f"t{j}" for j in range(T)]
+    write_proteins(f"{d}/q.fa", qn, qs)
+    write_proteins(f"{d}/t.fa", tn, ts)
+
+    banded_dp.reset_launch_counts()
+    _, run_s, text = run_captured(protein_sw, [
+        f"{d}/q.fa", f"{d}/t.fa", "-o", f"{d}/full.tsv", "--device", DEV])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    if f"[protein_sw] {Q}x{T} alignments" not in text:
+        fail(f"protein_sw printed no '{Q}x{T} alignments' line")
+    if launches.pop("K5_matrix") < 1 or any(launches.values()):
+        fail(f"the protein_sw run launched {launches} besides K5_matrix "
+             f"{wavefront_dp.wavefront_score_matrix.launches}")
+    n_k5m = wavefront_dp.wavefront_score_matrix.launches
+    sc = read_tsv_scores(np, f"{d}/full.tsv", Q, T)
+    margin = min(int(sc[i, j]) - int(np.delete(sc[i], j).max())
+                 for i, j in planted.items())
+    if margin <= 0:
+        fail(f"a planted pair does not outscore its query's others "
+             f"(least margin {margin})")
+    log(f"[protein] protein_sw --device cuda: {Q} x {T} = {Q * T} "
+        f"alignments in {run_s:.2f}s ({Q * T / run_s:.0f} alignments/s, "
+        f"FASTA parse and TSV write included); K5_matrix launched {n_k5m}; "
+        f"every planted pair outscores its query's others (least margin "
+        f"{margin})")
+
+    # the CLI's batch, laid out as it lays it out
+    dev = torch.device(DEV)
+
+    def pack(seqs):
+        m = np.full((len(seqs), max(map(len, seqs))), PROTEIN_X, np.int8)
+        for i, s in enumerate(seqs):
+            m[i, :len(s)] = s
+        return (torch.from_numpy(m).to(dev), torch.from_numpy(
+            np.array([len(s) for s in seqs], np.int32)).to(dev))
+
+    (pt, pl), (tt, tl) = pack(qs), pack(ts)
+    full = (pt.repeat_interleave(T, dim=0), pl.repeat_interleave(T),
+            tt.repeat(Q, 1), tl.repeat(Q))
+    band_w = max(pt.shape[1], tt.shape[1])
+    kw = dict(scheme=MatrixScheme(gap_open=10, gap_extend=1),
+              atype=AlignmentType.LOCAL, band_w=band_w)
+    idx = torch.arange(0, Q * T, max(Q * T // PROT_HOLD, 1), device=dev)
+    sub = tuple(a[idx] for a in full)
+
+    def k5m():
+        return wavefront_dp.wavefront_score_matrix(*sub, **kw)
+
+    def plain():
+        return banded_score_batch(*sub, None, twin=True, **kw)
+
+    def k5m_full():
+        return wavefront_dp.wavefront_score_matrix(*full, **kw)
+
+    got, want = k5m(), plain()
+    torch.cuda.synchronize()
+    keys = ("score", "p_end", "t_end")
+    err = max_abs_err(torch, [got[k] for k in keys], [want[k] for k in keys])
+    if err:
+        fail(f"K5_matrix differs from its plain version: max_abs_err {err}")
+    got_full = k5m_full()
+    if not np.array_equal(got_full["score"].reshape(Q, T).cpu().numpy(), sc):
+        fail("K5_matrix over the whole batch differs from the CLI's TSV")
+    nb = len(idx)
+    cells = int((sub[1].to(torch.int64) * sub[3]).sum())
+    cells_full = int((full[1].to(torch.int64) * full[3]).sum())
+    ms, pms = cuda_ms(torch, k5m, 5), cuda_ms(torch, plain, 1)
+    full_ms = cuda_ms(torch, k5m_full, 2)
+    bms, by, yard = gotoh_bound(cells, dp_bytes(*sub, out_bytes=12 * nb))
+    full_bms = gotoh_bound(cells_full, dp_bytes(*full,
+                                                out_bytes=12 * Q * T))[0]
+    log(f"[protein] K5_matrix = its plain version over {nb} of the batch's "
+        f"alignments (band_w {band_w}): kernel {ms:.3f} ms "
+        f"({cells / ms / 1e6:.1f} GCUPS over the {cells} cells Lq x Lt), "
+        f"plain {pms:.1f} ms; bound {bms:.4f} ms ({by}); the whole batch "
+        f"{full_ms:.2f} ms = {cells_full / full_ms / 1e6:.1f} GCUPS over "
+        f"{cells_full} cells (bound {full_bms:.3f} ms), its scores = the "
+        "CLI's")
+
+    # the CLI under both devices on an 8 x 64 subset
+    qi = list(range(8))
+    ti = sorted({int(planted[i]) for i in qi if i in planted}
+                | set(range(64)))[:64]
+    write_proteins(f"{d}/q8.fa", [qn[i] for i in qi], [qs[i] for i in qi])
+    write_proteins(f"{d}/t64.fa", [tn[j] for j in ti], [ts[j] for j in ti])
+    secs, tsv = {}, {}
+    for device in (DEV, "cpu"):
+        _, secs[device], _ = run_captured(protein_sw, [
+            f"{d}/q8.fa", f"{d}/t64.fa", "-o", f"{d}/sub_{device}.tsv",
+            "--device", device])
+        with open(f"{d}/sub_{device}.tsv", "rb") as f:
+            tsv[device] = f.read()
+    if tsv[DEV] != tsv["cpu"]:
+        fail("protein_sw --device cuda TSV differs from --device cpu on the "
+             "8 x 64 subset")
+    if not np.array_equal(read_tsv_scores(np, f"{d}/sub_cpu.tsv", 8, 64),
+                          sc[np.ix_(qi, ti)]):
+        fail("the 8 x 64 subset's scores differ from the whole run's")
+    log(f"[protein] 8 x 64 subset: --device cuda TSV = --device cpu TSV "
+        f"(= the whole run's scores); {secs[DEV]:.2f}s / {secs['cpu']:.2f}s")
+    return {"launches": {"K5_matrix": n_k5m}, "run_s": run_s,
+            "alignments_per_s": Q * T / run_s, "planted_margin": margin,
+            "band_w": band_w,
+            "row": {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by, "yard_bound_ms": yard, "cells": cells,
+                    "nb": nb, "max_abs_err": err,
+                    "gcups": cells / ms / 1e6},
+            "full": {"ms": full_ms, "cells": cells_full,
+                     "gcups": cells_full / full_ms / 1e6,
+                     "bound_ms": full_bms},
+            "subset_s": secs}
+
+
+def phase_wavelet(torch, np):
+    """The protein FM-index: build_wavelet_fm_index over a seeded
+    WFM_N-residue 20-letter text (host build, timed), then WFM_SEARCHES
+    8-mer backward searches on the card (half planted, half random, an
+    eighth of those with a '*' that never occurs) against the same
+    searches on the CPU over the same index; the planted ranges hold
+    their 8-mer's occurrence count in the text."""
+    from nvbio_tpu_torch.fmindex.wavelet_fm import (build_wavelet_fm_index,
+                                                    wfm_backward_search)
+
+    rng = np.random.default_rng(SEED + 71)
+    text = rng.integers(0, 20, WFM_N).astype(np.uint8)
+    t0 = time.perf_counter()
+    fm = build_wavelet_fm_index(text, 22)
+    build_s = time.perf_counter() - t0
+    dev = torch.device(DEV)
+    fm_dev = fm._replace(wt=fm.wt._replace(**{
+        k: getattr(fm.wt, k).to(dev)
+        for k in ("words", "block_rank", "node_start", "node_ones")}),
+        C=fm.C.to(dev))
+    L, n = 8, WFM_SEARCHES
+    starts = rng.integers(0, WFM_N - L, n // 2)
+    seeds = np.concatenate([
+        text[starts[:, None] + np.arange(L)],
+        rng.integers(0, 20, (n - n // 2, L))]).astype(np.int32)
+    star = np.arange(n // 2, n, 8)
+    seeds[star, 4] = 21
+    sd = torch.from_numpy(seeds).to(dev)
+
+    def search():
+        return wfm_backward_search(fm_dev, sd)
+
+    lo, hi = search()
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, search, 5)
+    t0 = time.perf_counter()
+    lo_c, hi_c = wfm_backward_search(fm, torch.from_numpy(seeds))
+    cpu_s = time.perf_counter() - t0
+    if not (torch.equal(lo.cpu(), lo_c) and torch.equal(hi.cpu(), hi_c)):
+        fail("wfm_backward_search on the card differs from the CPU")
+    cnt = (hi_c - lo_c).numpy()
+    # every 8-mer's count in the text, from sorted base-20 keys
+    win = np.lib.stride_tricks.sliding_window_view(text, L).astype(np.int64)
+    keys = np.sort(win @ (20 ** np.arange(L, dtype=np.int64)))
+    q = seeds[: n // 2].astype(np.int64) @ (20 ** np.arange(L,
+                                                          dtype=np.int64))
+    want = (np.searchsorted(keys, q, "right") - np.searchsorted(keys, q))
+    if not np.array_equal(cnt[: n // 2], want) or cnt[star].any():
+        fail("wavelet FM ranges disagree with the text's 8-mer counts")
+    log(f"[wavelet] {WFM_N}-residue text: host build {build_s:.2f}s "
+        f"(SA-IS, BWT, wavelet tree); {n} 8-mer searches on the card "
+        f"{ms:.3f} ms ({n / ms * 1e3:.0f} searches/s), the CPU "
+        f"{cpu_s:.2f}s; (lo, hi) equal, planted counts = the text's "
+        f"({int(cnt[: n // 2].sum())} occurrences), "
+        f"{int((cnt[n // 2:] > 0).sum())} random 8-mers found")
+    return {"n": WFM_N, "build_s": build_s, "searches": n, "ms": ms,
+            "searches_per_s": n / ms * 1e3, "cpu_s": cpu_s}
+
+
+def substitution_reads(np, g, n_reads, read_len, rate, rng):
+    """simulate_reads' model without indels, vectorised: uniform starts,
+    both strands, each base substituted to another with probability
+    ``rate``.  Returns (reads int8, error-free reads uint8, quals)."""
+    starts = rng.integers(0, len(g) - read_len, n_reads)
+    truth = g[starts[:, None] + np.arange(read_len)].astype(np.uint8)
+    rc = rng.integers(0, 2, n_reads).astype(bool)
+    truth[rc] = (3 - truth[rc])[:, ::-1]
+    err = rng.random(truth.shape) < rate
+    reads = truth.copy()
+    reads[err] = (reads[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    quals = rng.integers(25, 41, truth.shape).astype(np.uint8)
+    return reads.astype(np.int8), truth, quals
+
+
+def phase_corrector(torch, np):
+    """The read corrector at E. coli's length: CORR_COV x of 100 bp reads
+    with 1 % substitutions, k 15, passes 1 and 2 on the card at
+    --log2-slots 24 (the CLI's default) and at CORR_BIG_SLOTS, rounds 1
+    and 2: corrections, the per-base error rate against the simulated
+    truth before and after, reads/s; and correct_reads --rounds 2 on
+    CORR_CLI_READS reads of a 30x region under --device cuda and
+    --device cpu, FASTQ bytes equal."""
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.models.corrector import Corrector
+    from nvbio_tpu_torch.tools.correct_reads import main as correct_reads
+    from nvbio_tpu_torch.utils.simulate import random_genome
+
+    d = os.path.join(WORK, "corrector")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(SEED + 72)
+    g = random_genome(ECOLI_BP, seed=SEED + 73)
+    n = ECOLI_BP * CORR_COV // 100
+    reads, truth, _ = substitution_reads(np, g, n, 100, 0.01, rng)
+    lens = np.full(n, 100, np.int32)
+    spans = [slice(s, s + CORR_BATCH) for s in range(0, n, CORR_BATCH)]
+    before = float((reads != truth).mean())
+    runs = {}
+    for slots in (24, CORR_BIG_SLOTS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        corr = Corrector.build((reads[b] for b in spans),
+                               (lens[b] for b in spans), k=15,
+                               log2_slots=slots, device=DEV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for rounds in (1, 2):
+            t0 = time.perf_counter()
+            outs = [corr.correct(reads[b], lens[b], rounds=rounds)
+                    for b in spans]
+            correct_s = time.perf_counter() - t0
+            fixed = np.concatenate([o[0] for o in outs])
+            n_corr = int(sum(o[1].sum() for o in outs))
+            after = float((fixed != truth).mean())
+            r = runs[f"slots{slots}_rounds{rounds}"] = {
+                "corrections": n_corr, "error_before": before,
+                "error_after": after, "build_s": build_s,
+                "correct_s": correct_s,
+                "reads_per_s": n / (build_s + correct_s),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+            log(f"[corrector] {n} reads, --log2-slots {slots}, --rounds "
+                f"{rounds}: {n_corr} corrections, per-base error "
+                f"{before:.5f} -> {after:.5f}; pass 1 {build_s:.2f}s, pass 2 "
+                f"{correct_s:.2f}s: {r['reads_per_s']:.0f} reads/s "
+                f"(batches of {CORR_BATCH}); peak "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB")
+        del corr
+    if runs[f"slots{CORR_BIG_SLOTS}_rounds2"]["error_after"] > 0.2 * before:
+        fail("the sized sketch's two rounds left over a fifth of the errors")
+
+    # the CLI under both devices: reads of a region at 30x
+    m = CORR_CLI_READS
+    r2, _, q2 = substitution_reads(np, g[: m * 100 // 30 + 100], m, 100,
+                                   0.01, rng)
+    write_fastq(f"{d}/r.fq", [(f"r{i}", r2[i].astype(np.uint8), q2[i])
+                              for i in range(m)])
+    secs, fq, said = {}, {}, {}
+    for device in (DEV, "cpu"):
+        _, secs[device], said[device] = run_captured(correct_reads, [
+            f"{d}/r.fq", f"{d}/{device}.fq", "--rounds", "2", "--device",
+            device])
+        with open(f"{d}/{device}.fq", "rb") as f:
+            fq[device] = f.read()
+    if fq[DEV] != fq["cpu"] or said[DEV] != said["cpu"]:
+        fail("correct_reads --device cuda FASTQ differs from --device cpu")
+    log(f"[corrector] correct_reads --rounds 2 on {m} reads: cuda FASTQ = "
+        f"cpu FASTQ; {secs[DEV]:.2f}s / {secs['cpu']:.2f}s "
+        f"({m / secs[DEV]:.0f} / {m / secs['cpu']:.0f} reads/s, FASTQ "
+        "parse and write included)")
+    return {"reads": n, "runs": runs, "cli_reads": m, "cli_s": secs,
+            "cli_line": said["cpu"].strip()}
+
+
+def phase_bwa(torch, np):
+    """BWA index interop at E. coli's length, in two contigs with N runs:
+    build_index, bwa_export --reverse, bwa_import: every imported .npz
+    array and the contig table equal the direct build's; map_reads
+    --device cuda of BWA_READS reads against both indexes gives the same
+    SAM records."""
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.tools.bwa_export import main as bwa_export
+    from nvbio_tpu_torch.tools.bwa_import import main as bwa_import
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+    from nvbio_tpu_torch.utils.simulate import random_genome
+
+    d = os.path.join(WORK, "bwa")
+    os.makedirs(d, exist_ok=True)
+    g = random_genome(ECOLI_BP, seed=SEED + 74)
+    cut = ECOLI_BP * 2 // 3
+    for a, b in ((cut // 3, cut // 3 + 100), (2 * cut // 3, 2 * cut // 3 + 7),
+                 (cut + 5_000, cut + 5_050)):
+        g[a:b] = 4
+    write_fasta(f"{d}/g.fa", [("contig1", g[:cut]), ("contig2", g[cut:])])
+    secs = {}
+    for name, fn, args in (
+            ("build_index", build, [f"{d}/g.fa", f"{d}/g.npz"]),
+            ("bwa_export", bwa_export, [f"{d}/g.npz", f"{d}/bw",
+                                        "--reverse"]),
+            ("bwa_import", bwa_import, [f"{d}/bw", f"{d}/gi.npz"])):
+        _, secs[name], text = run_captured(fn, args)
+    if "bwt cross-check: PASSED" not in text:
+        fail("bwa_import did not cross-check the exported .bwt")
+    bad = [k for k in npz_diff(np, f"{d}/gi.npz", f"{d}/g.npz")
+           if k != "meta"]
+    metas = []
+    for f in ("g.npz", "gi.npz"):
+        with np.load(f"{d}/{f}") as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+            metas.append({k: meta.get(k) for k in (
+                "contig_names", "contig_lens", "amb", "sa_sample", "sa_bi",
+                "lut_k")})
+    if bad or metas[0] != metas[1]:
+        fail(f"the imported index differs from the direct build: {bad}, "
+             f"{metas}")
+    rng = np.random.default_rng(SEED + 75)
+    reads, _, quals = substitution_reads(np, np.where(g < 4, g, 0), BWA_READS,
+                                         100, 0.02, rng)
+    write_fastq(f"{d}/r.fq", [(f"r{i}", reads[i].astype(np.uint8), quals[i])
+                              for i in range(BWA_READS)])
+    recs = {}
+    for idx in ("g", "gi"):
+        t0 = time.perf_counter()
+        mapr(["-x", f"{d}/{idx}.npz", "-U", f"{d}/r.fq", "-S",
+              f"{d}/{idx}.sam", "--device", DEV])
+        secs[f"map_{idx}"] = time.perf_counter() - t0
+        recs[idx] = sam_records(f"{d}/{idx}.sam")
+    n_al = sum(r.split("\t")[1] != "4" for r in recs["g"])
+    if recs["g"] != recs["gi"] or len(recs["g"]) != BWA_READS:
+        fail("map_reads against the imported index differs from the direct "
+             "build's SAM")
+    if n_al < 0.95 * BWA_READS:
+        fail(f"only {n_al} of {BWA_READS} reads aligned")
+    log(f"[bwa] {ECOLI_BP} bp in 2 contigs with 3 N runs: build_index "
+        f"{secs['build_index']:.2f}s, bwa_export --reverse "
+        f"{secs['bwa_export']:.2f}s, bwa_import {secs['bwa_import']:.2f}s; "
+        f"every imported array and the contig table = the direct build's; "
+        f"{BWA_READS} reads mapped --device cuda against both ({n_al} "
+        f"aligned): identical SAM records")
+    return {"seconds": secs, "aligned": n_al}
+
+
 def kernel_phases(torch, np, result, only=None):
     """The kernel phases (3, 4, 4b, 9, 10, K1 at bench.py's shape, 14)
     into ``result``: every kernel against its plain version, timed.  With
@@ -3488,6 +3912,14 @@ def main():
         result["sharded"] = phase_sharded(torch, np)
         torch.cuda.empty_cache()
         result["long"] = phase_long_reads(torch, np, genome)
+        torch.cuda.empty_cache()
+        result["protein"] = phase_protein(torch, np)
+        torch.cuda.empty_cache()
+        result["wavelet"] = phase_wavelet(torch, np)
+        torch.cuda.empty_cache()
+        result["corrector"] = phase_corrector(torch, np)
+        torch.cuda.empty_cache()
+        result["bwa"] = phase_bwa(torch, np)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t_start
@@ -3508,7 +3940,8 @@ def main():
              "-a run": result["all"]["launches"],
              "PE --local run": result["pe_local"]["launches"],
              "flagged SE run": result["io_flags"]["launches"],
-             "flagged PE run": result["io_flags"]["pe_launches"]}
+             "flagged PE run": result["io_flags"]["pe_launches"],
+             "protein_sw run": result["protein"]["launches"]}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # (name, source, replaces, the path whose run launches it)
@@ -3528,8 +3961,12 @@ def main():
             ("K6", "myers.cu", "nvbio_tpu/ops/myers_pallas.py:187",
              "sw_benchmark --long"),
             ("K7", "banded_gotoh16.cu", "nvbio_tpu/ops/banded_dp.py:117",
-             "int16 opt-in phase")):
-        k = result["kernels"][name]
+             "int16 opt-in phase"),
+            ("K5_matrix", "wavefront_gotoh.cu",
+             "nvbio_tpu/alignment/extra.py:40 -> "
+             "nvbio_tpu/alignment/batched.py:41", "protein_sw run")):
+        k = (result["protein"]["row"] if name == "K5_matrix"
+             else result["kernels"][name])
         if name in ("K2", "K3"):  # timed at the shape the path calls it
             p = result["path_shapes"][f"{name}_path"]
             k = dict(p, max_abs_err=max(k["max_abs_err"], p["max_abs_err"]))

@@ -25,6 +25,10 @@ cell.  The outputs follow the Pallas kernels' contract
 - zero-length patterns score NEG_INF (0 in LOCAL) with p_end = 0;
 - t_end = max(p_end + k - w, 0).
 
+Either scheme scores the substitution (``_subst_scores``): a
+``GotohScheme`` by its quality-aware formula, a ``MatrixScheme`` (protein
+SW) by a table gather.
+
 With ``twin=True`` the outputs follow the JAX twin itself
 (``nvbio_tpu/alignment/batched.py:139-224``), the contract of the
 wavefront kernel K5 (``nvbio_tpu/ops/wavefront_dp.py:33-40``, raw twin
@@ -38,6 +42,8 @@ alignment (``group_gotoh.cuh``) or one block an alignment.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .types import AlignmentType, GotohScheme, NEG_INF, gap_penalties
@@ -48,8 +54,30 @@ PAD_SYMBOL = 7
 SCORE_FLOOR = -(1 << 19)
 
 
+def _is_matrix(scheme) -> bool:
+    """A substitution-matrix scheme (``alignment.blosum.MatrixScheme``),
+    told apart as the reference's ``_subst_scores`` does."""
+    return hasattr(scheme, "matrix")
+
+
+@functools.lru_cache(maxsize=8)
+def _matrix_table(scheme, device: torch.device) -> torch.Tensor:
+    """A matrix scheme's (K, K) int32 table on ``device``, made once."""
+    return torch.from_numpy(scheme.matrix_np).to(device)
+
+
 def _subst_scores(p, q, tsl, scheme: GotohScheme):
-    """Substitution scores: p, q (B,) int32; tsl (B, BAND) int32."""
+    """Substitution scores: p, q (B,) int32; tsl (B, BAND) int32.
+
+    A ``GotohScheme`` scores by the quality-aware match/mismatch formula,
+    a ``MatrixScheme`` (``alignment/blosum.py``, protein SW) by the
+    reference's matrix gather (``nvbio_tpu/alignment/batched.py:41-46``):
+    p and t clipped to [0, K - 1], ``matrix[p, t]``, quality ignored."""
+    if _is_matrix(scheme):
+        mat = _matrix_table(scheme, tsl.device)
+        K = mat.shape[0]
+        return mat[p.clamp(0, K - 1)[:, None],
+                   tsl.clamp(0, K - 1)].to(torch.int32)
     mm = scheme.mismatch_min + (
         (scheme.mismatch_max - scheme.mismatch_min) * q.clamp(max=40)) // 40
     p_ = p[:, None]

@@ -125,3 +125,15 @@ def write_pac(path, symbols: np.ndarray):
     with open(path, "wb") as f:
         f.write(pac.tobytes())
         f.write(bytes([n % 4]))
+
+
+def read_pac(path) -> np.ndarray:
+    """A BWA-layout .pac back to uint8 symbols (the reference's
+    ``read_pac``)."""
+    data = np.frombuffer(open(path, "rb").read(), dtype=np.uint8)
+    rem = int(data[-1])
+    pac = data[:-1]
+    shifts = np.array([6, 4, 2, 0], dtype=np.uint8)
+    syms = ((pac[:, None] >> shifts[None, :]) & 3).reshape(-1)
+    n = (len(pac) - 1) * 4 + rem if rem else len(pac) * 4
+    return syms[:n].astype(np.uint8)

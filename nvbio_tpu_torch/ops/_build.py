@@ -61,6 +61,9 @@ _SIGNATURES = {
     # as k4_long_score, plus the state scratch before out (and dirs after)
     "k5_wavefront_score": _SCORE[:-2] + [_P, _P, _P],
     "k5_wavefront_directions": _DIRS[:-3] + [_P, _P, _P, _P],
+    # pats, plens, texts, tlens, nb, lp, lt, band_w, atype, eo, ee, fo,
+    # fe, mat, mat_k, scratch, out, stream
+    "k5_wavefront_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
     # pats, plens, texts, tlens, nb, lp, lt, global, scratch, out, stream
     "k6_myers": [_P] * 4 + [_I] * 4 + [_P] * 3,
     # as k1_banded_score, plus the scratch before the stream

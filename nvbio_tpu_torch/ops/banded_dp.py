@@ -300,7 +300,8 @@ def banded_directions(patterns, plens, texts, tlens, quals=None, *,
 
 
 #: the wrappers whose launches are counted, by kernel name (all kernels
-#: of the port, K5 with its score and its flag entry points)
+#: of the port, K5 with its score, its matrix-score and its flag entry
+#: points)
 KERNELS = {
     "K1": banded_score,
     "K2": banded_directions,
@@ -308,6 +309,7 @@ KERNELS = {
     "K4": long_dp.launch,
     "K5": wavefront_dp.wavefront_score,
     "K5_dirs": wavefront_dp.wavefront_dirs,
+    "K5_matrix": wavefront_dp.wavefront_score_matrix,
     "K6": myers.myers,
     "K7": banded_score16,
 }

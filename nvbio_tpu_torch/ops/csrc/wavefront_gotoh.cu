@@ -1,6 +1,8 @@
 // Anti-diagonal wide-band banded Gotoh DP for Hopper (sm_90a): K5.
 //
 //   k5_wavefront_score       score + sink, raw twin values
+//   k5_wavefront_score_matrix  the same with substitution scores from a
+//                            K x K table (protein SW: BLOSUM62)
 //   k5_wavefront_directions  score + sink + one 4-bit flag per band cell,
 //                            in the diagonal layout of ops/wavefront_dp.py
 //   k5_state_words           the per-block scratch a band needs when its
@@ -45,6 +47,12 @@
 // entry point visits only rows <= plen and columns <= tlen; the flag
 // entry point visits rows <= Lp and writes every byte of its output.
 //
+// Matrix mode (MAT): the substitution is the twin's matrix gather
+// (nvbio_tpu/alignment/batched.py:41-46), table[clip(p) * K + clip(t)]
+// with p and t clipped to [0, K - 1], quality ignored.  The block stages
+// the table (K <= MAX_MAT_K) in shared memory before its diagonal loop.
+// MAT is a template parameter: the formula instantiations are unchanged.
+//
 // What bounds it on the H100: per cell about 30 int32 operations and 9
 // shared-memory accesses behind one barrier per diagonal, with one block
 // of up to 1024 threads per alignment; the parallelism is the cells of a
@@ -62,6 +70,8 @@ constexpr int MAX_THREADS = 1024;
 // dynamic shared memory a block takes for its rings at most
 constexpr int SMEM_BYTES = 200 * 1024;
 constexpr int N_RINGS = 9;
+// largest substitution table of the matrix mode (K x K int32)
+constexpr int MAX_MAT_K = 32;
 
 __host__ __device__ inline int floor_div2(int x) {
   return x >= 0 ? x / 2 : -((1 - x) / 2);
@@ -95,14 +105,20 @@ __device__ __forceinline__ Best shfl_best(const Best& v, int delta) {
               __shfl_down_sync(FULL, v.k, delta)};
 }
 
-template <int ATYPE, bool DIRS>
+template <int ATYPE, bool DIRS, bool MAT>
 __global__ void __launch_bounds__(MAX_THREADS)
-    k5_kernel(Args a, int32_t* scratch, int ring, int smem_rings) {
+    k5_kernel(Args a, int32_t* scratch, int ring, int smem_rings,
+              const int32_t* mat, int mat_k) {
   extern __shared__ int32_t rings_smem[];
   __shared__ Best warp_best[MAX_THREADS / 32];
+  __shared__ int32_t mat_s[MAT ? MAX_MAT_K * MAX_MAT_K : 1];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  if constexpr (MAT) {
+    for (int i = tid; i < mat_k * mat_k; i += nt) mat_s[i] = __ldg(mat + i);
+    __syncthreads();
+  }
   int32_t* st = smem_rings
                     ? rings_smem
                     : scratch + static_cast<int64_t>(b) * N_RINGS * ring;
@@ -170,12 +186,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const int E1 = left_out ? EMASK : Ep[ri];
         const int Hh1 = left_out ? NEG_INF : Hhp[ri];
         const int ps = __ldg(pat + r - 1);
-        const int q = min(static_cast<int>(__ldg(qual + r - 1)), 40);
-        const int mm = sc.mm_min + floor_div40((sc.mm_max - sc.mm_min) * q);
         const int ts = (j >= 1 && j - 1 < lt) ? __ldg(text + j - 1)
                                               : PAD_SYMBOL;
-        const int s = (ps >= 4 || ts >= 4) ? -sc.n_penalty
-                                           : (ps == ts ? sc.match : -mm);
+        int s;
+        if constexpr (MAT) {
+          s = mat_s[min(max(ps, 0), mat_k - 1) * mat_k +
+                    min(max(ts, 0), mat_k - 1)];
+        } else {
+          const int q = min(static_cast<int>(__ldg(qual + r - 1)), 40);
+          const int mm =
+              sc.mm_min + floor_div40((sc.mm_max - sc.mm_min) * q);
+          s = (ps >= 4 || ts >= 4) ? -sc.n_penalty
+                                   : (ps == ts ? sc.match : -mm);
+        }
         const int f_open = H1 - (sc.fo + sc.fe);
         const int F = max(f_open, F1 - sc.fe);
         const int Hdiag = H2 + s;
@@ -233,32 +256,34 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <int ATYPE, bool DIRS>
-cudaError_t launch_one(const Args& a, int32_t* scratch, cudaStream_t stream) {
+template <int ATYPE, bool DIRS, bool MAT>
+cudaError_t launch_one(const Args& a, int32_t* scratch, const int32_t* mat,
+                       int mat_k, cudaStream_t stream) {
   const int ring = ring_size(a.band_w);
   const int smem = rings_in_smem(a.band_w) ? N_RINGS * ring * 4 : 0;
   const int npairs = (a.band_w + 2) / 2;
   const int nt = min(MAX_THREADS, (npairs + 31) / 32 * 32);
   cudaError_t err = cudaFuncSetAttribute(
-      k5_kernel<ATYPE, DIRS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      k5_kernel<ATYPE, DIRS, MAT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  k5_kernel<ATYPE, DIRS><<<a.nb, nt, smem, stream>>>(a, scratch, ring,
-                                                     smem > 0);
+  k5_kernel<ATYPE, DIRS, MAT><<<a.nb, nt, smem, stream>>>(
+      a, scratch, ring, smem > 0, mat, mat_k);
   return cudaGetLastError();
 }
 
-template <bool DIRS>
+template <bool DIRS, bool MAT>
 cudaError_t launch(const Args& a, int atype, int32_t* scratch,
-                   cudaStream_t stream) {
+                   const int32_t* mat, int mat_k, cudaStream_t stream) {
   if (a.nb == 0) return cudaSuccess;
   switch (atype) {
     case GLOBAL:
-      return launch_one<GLOBAL, DIRS>(a, scratch, stream);
+      return launch_one<GLOBAL, DIRS, MAT>(a, scratch, mat, mat_k, stream);
     case SEMI_GLOBAL:
-      return launch_one<SEMI_GLOBAL, DIRS>(a, scratch, stream);
+      return launch_one<SEMI_GLOBAL, DIRS, MAT>(a, scratch, mat, mat_k,
+                                                stream);
     case LOCAL:
-      return launch_one<LOCAL, DIRS>(a, scratch, stream);
+      return launch_one<LOCAL, DIRS, MAT>(a, scratch, mat, mat_k, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -296,9 +321,27 @@ int k5_wavefront_score(const void* pats, const void* quals, const void* plens,
   const Args a = k5_args(pats, quals, plens, texts, tlens, nb, lp, lt, band_w,
                          match, mm_min, mm_max, n_penalty, eo, ee, fo, fe,
                          out);
-  return static_cast<int>(launch<false>(a, atype,
-                                        static_cast<int32_t*>(scratch),
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<false, false>(
+      a, atype, static_cast<int32_t*>(scratch), nullptr, 0,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// As k5_wavefront_score with the substitution from mat, a (mat_k, mat_k)
+// int32 device table (1 <= mat_k <= 32), instead of match/mismatch/N and
+// quality (no quals pointer).
+int k5_wavefront_score_matrix(const void* pats, const void* plens,
+                              const void* texts, const void* tlens, int nb,
+                              int lp, int lt, int band_w, int atype, int eo,
+                              int ee, int fo, int fe, const void* mat,
+                              int mat_k, void* scratch, void* out,
+                              void* stream) {
+  if (mat_k < 1 || mat_k > MAX_MAT_K) return cudaErrorInvalidValue;
+  const Args a = k5_args(pats, nullptr, plens, texts, tlens, nb, lp, lt,
+                         band_w, 0, 0, 0, 0, eo, ee, fo, fe, out);
+  return static_cast<int>(launch<false, true>(
+      a, atype, static_cast<int32_t*>(scratch),
+      static_cast<const int32_t*>(mat), mat_k,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // As k5_wavefront_score, plus dirs: (nb, lp + lt + 1, (band_w + 2) / 2)
@@ -313,9 +356,9 @@ int k5_wavefront_directions(const void* pats, const void* quals,
   Args a = k5_args(pats, quals, plens, texts, tlens, nb, lp, lt, band_w,
                    match, mm_min, mm_max, n_penalty, eo, ee, fo, fe, out);
   a.dirs = static_cast<uint8_t*>(dirs);
-  return static_cast<int>(launch<true>(a, atype,
-                                       static_cast<int32_t*>(scratch),
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<true, false>(
+      a, atype, static_cast<int32_t*>(scratch), nullptr, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

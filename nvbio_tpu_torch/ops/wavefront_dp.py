@@ -17,6 +17,14 @@ tensors on the CPU, and only then; for CUDA tensors they launch the kernel
 or raise.  ``wavefront_score.launches`` and ``wavefront_dirs.launches``
 count the launches.
 
+``wavefront_score`` passes a substitution-matrix scheme
+(``alignment.blosum.MatrixScheme``, protein SW) to
+``wavefront_score_matrix``: the kernel's matrix mode
+(``k5_wavefront_score_matrix``, the table staged in shared memory), whose
+plain version is the twin's matrix gather (``_subst_scores``) and whose
+launches ``wavefront_score_matrix.launches`` counts.  No tool walks a
+protein traceback, so ``wavefront_dirs`` refuses a matrix scheme.
+
 Flag layout (the port's own; only ``alignment/wavefront_walk.py`` reads
 it).  Cell (r, j) lies on diagonal d = r + j at slot q = r - rlo(d), with
 rlo(d) = ceil((d - w) / 2), so the in-band cells of a diagonal (|j - r|
@@ -31,9 +39,20 @@ from __future__ import annotations
 
 import torch
 
-from ..alignment.batched import banded_directions_batch, banded_score_batch
+from ..alignment.batched import (_is_matrix, _matrix_table,
+                                 banded_directions_batch, banded_score_batch)
 from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
 from . import _build, _launch
+
+def _max_penalty(scheme) -> int:
+    """The largest score step of a scheme: its largest |substitution|
+    and its gap penalties."""
+    if _is_matrix(scheme):
+        subst = int(abs(scheme.matrix_np).max())
+    else:
+        subst = max(scheme.mismatch_max, scheme.n_penalty, abs(scheme.match))
+    return max(subst, *gap_penalties(scheme))
+
 
 #: flag bytes one call may allocate (``wavefront_dp.py:436``)
 MAX_DIRS_BYTES = 6 << 30
@@ -47,7 +66,10 @@ def kmul(band_w: int) -> int:
 
 def check_wavefront(lp: int, lt: int, band_w: int, scheme) -> None:
     """The JAX kernel's two asserts, as ValueError: the sink key range
-    (``wavefront_dp.py:311-313``) and the score range (``:384-385``)."""
+    (``wavefront_dp.py:311-313``) and the score range (``:384-385``),
+    the latter over a matrix scheme's largest |substitution|.  The
+    reference's XLA twin, which scores a matrix scheme there, has
+    neither guard."""
     if band_w < 0 or lp < 1:
         raise ValueError(f"band_w={band_w}, Lp={lp}: need band_w >= 0 and "
                          "Lp >= 1")
@@ -55,10 +77,8 @@ def check_wavefront(lp: int, lt: int, band_w: int, scheme) -> None:
     if (lp + 2) * km >= 1 << 31:
         raise ValueError(
             f"pattern too long for the sink key encoding at band_w={band_w}"
-            f" (Lp={lp}, KMUL={km})")
-    maxpen = max(scheme.mismatch_max, scheme.n_penalty, abs(scheme.match),
-                 *gap_penalties(scheme))
-    if (lp + lt + 2 * band_w + 4) * maxpen >= 1 << 29:
+            f" (Lp={lp}, Lt={lt}, KMUL={km})")
+    if (lp + lt + 2 * band_w + 4) * _max_penalty(scheme) >= 1 << 29:
         raise ValueError("score range too wide for the int32 body")
 
 
@@ -97,6 +117,36 @@ def wavefront_dirs_plain(patterns, plens, texts, tlens, quals=None, *,
     return res, twin_flags_to_diagonals(dirs, texts.shape[1], band_w)
 
 
+def _scratch(lib, nb: int, band_w: int, dev) -> torch.Tensor:
+    """A block's DP state lives in shared memory up to the capacity the
+    library reports, beyond it in this scratch (one slice per block)."""
+    words = lib.k5_state_words(band_w)
+    return torch.empty((nb if words else 1, max(words, 1)),
+                       dtype=torch.int32, device=dev)
+
+
+def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
+    pats, _, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens, None)
+    tx = _launch.stage_texts(texts, pats.shape[0])
+    nb, lp = pats.shape
+    dev = pats.device
+    # the table is the twin's own; the C entry bounds K (MAX_MAT_K there)
+    mat = _matrix_table(scheme, dev)
+    k = mat.shape[0]
+    if mat.dim() != 2 or mat.shape[1] != k:
+        raise ValueError(f"substitution matrix {tuple(mat.shape)}: need "
+                         "K x K")
+    lib = _build.library()
+    scratch = _scratch(lib, nb, band_w, dev)
+    rc = lib.k5_wavefront_score_matrix(
+        pats.data_ptr(), pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), nb, lp,
+        tx.shape[1], band_w, atype.value, *gap_penalties(scheme),
+        mat.data_ptr(), k, scratch.data_ptr(), out.data_ptr(),
+        _launch.stream(dev))
+    _build.check(lib, rc, "k5_wavefront_score_matrix")
+    return _launch.result(out)
+
+
 def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
                with_dirs):
     pats, qual, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens,
@@ -106,11 +156,7 @@ def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
     lt = tx.shape[1]
     dev = pats.device
     lib = _build.library()
-    # a block's DP state lives in shared memory up to the capacity the
-    # library reports, beyond it in this scratch (one slice per block)
-    words = lib.k5_state_words(band_w)
-    scratch = torch.empty((nb if words else 1, max(words, 1)),
-                          dtype=torch.int32, device=dev)
+    scratch = _scratch(lib, nb, band_w, dev)
     args = (pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
             tl.data_ptr(), nb, lp, lt, band_w,
             *_launch.scheme_args(scheme, atype), scratch.data_ptr(),
@@ -137,7 +183,13 @@ def wavefront_score(patterns, plens, texts, tlens, quals=None, *,
 
     patterns (NB, Lp) symbols (0..3, N >= 4); texts (NB, Lt); plens,
     tlens (NB,); quals (NB, Lp) or None (= 40).  Returns dict of (NB,)
-    int32 ``score``, ``p_end``, ``t_end``."""
+    int32 ``score``, ``p_end``, ``t_end``.  With a matrix ``scheme``
+    the symbols are the matrix's (protein 0..21) and quals are ignored,
+    as in the twin."""
+    if _is_matrix(scheme):
+        return wavefront_score_matrix(patterns, plens, texts, tlens,
+                                      scheme=scheme, atype=atype,
+                                      band_w=band_w)
     check_wavefront(patterns.shape[1], texts.shape[1], band_w, scheme)
     if _launch.on_cpu(patterns, plens, texts, tlens, quals):
         return banded_score_batch(patterns, plens, texts, tlens, quals,
@@ -149,13 +201,35 @@ def wavefront_score(patterns, plens, texts, tlens, quals=None, *,
     return res
 
 
+def wavefront_score_matrix(patterns, plens, texts, tlens, *, scheme,
+                           atype: AlignmentType, band_w: int):
+    """K5's matrix mode: ``wavefront_score`` with the substitution from
+    ``scheme.matrix_np`` (a ``MatrixScheme``), table[clip(p), clip(t)]
+    over symbols clipped to [0, K - 1], no quality term.  The plain
+    version is the twin's matrix gather (``banded_score_batch(twin=True)``
+    with the same scheme)."""
+    check_wavefront(patterns.shape[1], texts.shape[1], band_w, scheme)
+    if _launch.on_cpu(patterns, plens, texts, tlens):
+        return banded_score_batch(patterns, plens, texts, tlens, None,
+                                  scheme=scheme, atype=atype, band_w=band_w,
+                                  twin=True)
+    res = _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype,
+                            band_w)
+    wavefront_score_matrix.launches += 1
+    return res
+
+
 def wavefront_dirs(patterns, plens, texts, tlens, quals=None, *,
                    scheme: GotohScheme, atype: AlignmentType, band_w: int):
     """K5 with flags: ``wavefront_score``'s outputs plus one 4-bit flag
     per band cell in the diagonal layout (module docstring).
 
     Returns (result dict, dirs (NB, Lp + Lt + 1, ceil((w + 1) / 2))
-    uint8)."""
+    uint8).  A matrix scheme raises ValueError (module docstring)."""
+    if _is_matrix(scheme):
+        raise ValueError("K5's flag entry point takes no substitution "
+                         "matrix: score a matrix scheme with "
+                         "wavefront_score")
     check_wavefront(patterns.shape[1], texts.shape[1], band_w, scheme)
     if _launch.on_cpu(patterns, plens, texts, tlens, quals):
         return wavefront_dirs_plain(patterns, plens, texts, tlens, quals,
@@ -168,4 +242,5 @@ def wavefront_dirs(patterns, plens, texts, tlens, quals=None, *,
 
 
 wavefront_score.launches = 0
+wavefront_score_matrix.launches = 0
 wavefront_dirs.launches = 0

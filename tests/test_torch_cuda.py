@@ -13,7 +13,10 @@ alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
 the SAM of --local, -N 1 and -a (CUDA SAM = CPU SAM), single-end
 map_reads on a sharded index (CUDA SAM = CPU SAM), and the MEM and
 q-gram mappers: find_mems (CUDA = CPU) and the SAM of mem_map and qmap
-(CUDA SAM = CPU SAM).
+(CUDA SAM = CPU SAM); K5's matrix mode (protein SW) against its plain
+version in shared-memory and scratch state, and the protein_sw TSV, the
+wavelet FM-index search and the correct_reads FASTQ under --device cuda
+equal to --device cpu.
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -113,7 +116,7 @@ def test_kernels_match_plain(cuda, atype, band_w, nb, lp, big):
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
     assert counts == {"K1": 1, "K2": 1, "K3": 1, "K4": 0, "K5": 0,
-                      "K5_dirs": 0, "K6": 0, "K7": 0}
+                      "K5_dirs": 0, "K5_matrix": 0, "K6": 0, "K7": 0}
     want3 = banded_dp.banded_score_packed(
         cpu[0], cpu[1], gw, torch.from_numpy(ws), cpu[3], cpu[4], **kw)
     want_r, want_d = banded_directions_batch(*cpu, **kw)
@@ -271,7 +274,7 @@ def test_wide_band_short_calls_route_to_k4(cuda, atype, lp, band_w, big):
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
     assert counts == {"K1": 0, "K2": 0, "K3": 0, "K4": 3, "K5": 0,
-                      "K5_dirs": 0, "K6": 0, "K7": 0}
+                      "K5_dirs": 0, "K5_matrix": 0, "K6": 0, "K7": 0}
     want = banded_score_batch(*cpu, **kw)
     want3 = banded_dp.banded_score_packed(
         cpu[0], cpu[1], gw, torch.from_numpy(ws), cpu[3], cpu[4], **kw)
@@ -934,3 +937,111 @@ def test_occ_tables_on_cuda_equal_cpu(cuda, monkeypatch):
                        build._occ_tables_host(bwt_pad, n_blocks)):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+def _protein_pairs(seed, nb, lq, lt):
+    """Random 20-letter proteins, every other text holding a ~30 %
+    substituted copy of its query; X and '*' codes, ragged lengths and
+    a zero-length query."""
+    rng = np.random.default_rng(seed)
+    pats = rng.integers(0, 20, (nb, lq)).astype(np.int8)
+    texts = rng.integers(0, 20, (nb, lt)).astype(np.int8)
+    plens = rng.integers(lq // 2, lq + 1, nb).astype(np.int32)
+    tlens = rng.integers(lt // 2, lt + 1, nb).astype(np.int32)
+    for b in range(0, nb, 2):
+        m = int(min(plens[b], tlens[b]))
+        s = int(rng.integers(0, tlens[b] - m + 1))
+        seg = pats[b, :m].copy()
+        sub = rng.random(m) < 0.3
+        seg[sub] = rng.integers(0, 20, int(sub.sum()))
+        texts[b, s:s + m] = seg
+    pats[1, 3], texts[2, 4], plens[3] = 20, 21, 0
+    return pats, plens, texts, tlens
+
+
+@pytest.mark.parametrize("lq,lt", [(60, 90), (120, 70), (2100, 4200)],
+                         ids=["smem", "smem-lq>lt", "scratch"])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_matrix_matches_plain(cuda, atype, lq, lt):
+    """K5's matrix mode at band_w = max(Lq, Lt), as full_score_batch
+    calls it, against the twin's matrix gather; band_w 4200 keeps its
+    state in device scratch (past 4 094)."""
+    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
+    from nvbio_tpu_torch.alignment.extra import full_score_batch
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    cpu = [torch.from_numpy(a) for a in _protein_pairs(lq + lt, 6, lq, lt)]
+    kw = dict(scheme=MatrixScheme(gap_open=10, gap_extend=1), atype=atype)
+    banded_dp.reset_launch_counts()
+    got = full_score_batch(*[a.to(cuda) for a in cpu], **kw)
+    torch.cuda.synchronize()
+    assert wavefront_dp.wavefront_score_matrix.launches == 1
+    assert wavefront_dp.wavefront_score.launches == 0
+    want = full_score_batch(*cpu, **kw)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    with pytest.raises(ValueError, match="no substitution matrix"):
+        wavefront_dp.wavefront_dirs(*[a.to(cuda) for a in cpu],
+                                    band_w=max(lq, lt), **kw)
+
+
+def test_protein_sw_and_wavelet_search_on_cuda_equal_cpu(cuda, tmp_path):
+    from nvbio_tpu_torch.basic.alphabet import decode_protein
+    from nvbio_tpu_torch.fmindex.wavelet_fm import (build_wavelet_fm_index,
+                                                    wfm_backward_search)
+    from nvbio_tpu_torch.ops import wavefront_dp
+    from nvbio_tpu_torch.tools.protein_sw import main
+
+    rng = np.random.default_rng(95)
+    q = [decode_protein(rng.integers(0, 20, int(rng.integers(20, 200))))
+         for _ in range(6)]
+    t = [decode_protein(rng.integers(0, 20, int(rng.integers(20, 300))))
+         for _ in range(9)]
+    t[4] = "GGG" + q[2] + "WW"
+    (tmp_path / "q.fa").write_text("".join(f">q{i}\n{s}\n"
+                                           for i, s in enumerate(q)))
+    (tmp_path / "t.fa").write_text("".join(f">t{i}\n{s}\n"
+                                           for i, s in enumerate(t)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        banded_dp.reset_launch_counts()
+        assert main([str(tmp_path / "q.fa"), str(tmp_path / "t.fa"), "-o",
+                     str(tmp_path / f"{dev}.tsv"), "--device", dev]) == 0
+        assert wavefront_dp.wavefront_score_matrix.launches == (
+            dev == "cuda")
+        out[dev] = (tmp_path / f"{dev}.tsv").read_bytes()
+    assert out["cuda"] == out["cpu"]
+
+    text = rng.integers(0, 20, 300_000).astype(np.uint8)
+    starts = rng.integers(0, len(text) - 8, 2000)
+    seeds = np.stack([text[s:s + 8] for s in starts]).astype(np.int32)
+    seeds[::7, 3] = 21  # absent
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fm = build_wavelet_fm_index(text, 22, device=dev)
+        lo, hi = wfm_backward_search(fm, torch.from_numpy(seeds).to(dev))
+        got[dev] = (lo.cpu(), hi.cpu())
+    assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    assert int((got["cpu"][1] > got["cpu"][0]).sum()) == 2000 - 286
+
+
+def test_correct_reads_on_cuda_equals_cpu(cuda, tmp_path):
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.tools.correct_reads import main
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    g = random_genome(15_000, seed=96)
+    sim = simulate_reads(g, 4000, 100, error_rate=0.01, indel_rate=0.0,
+                         seed=97)
+    write_fastq(str(tmp_path / "r.fq"), [
+        (f"r{i}", sim["seqs"][i].astype(np.uint8), sim["quals"][i])
+        for i in range(4000)])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        assert main([str(tmp_path / "r.fq"), str(tmp_path / f"{dev}.fq"),
+                     "--log2-slots", "20", "--rounds", "2", "--batch",
+                     "1500", "--device", dev]) == 0
+        got[dev] = (tmp_path / f"{dev}.fq").read_bytes()
+    assert got["cuda"] == got["cpu"]
+    assert got["cpu"] != (tmp_path / "r.fq").read_bytes()

@@ -1,5 +1,6 @@
 """The port's copies of the host code (``nvbio_tpu_torch.basic``,
-``.io``, ``.native``, ``.utils``, ``.parallel``, ``.sufsort.sa``, the
+``.io`` (BWA files and ``read_pac`` too), ``.alignment.blosum``,
+``.native``, ``.utils``, ``.parallel``, ``.sufsort.sa``, the
 bucketed sort's host helpers, the set-BWT oracle and the sharded index's
 ``_shard_bounds``) give the originals' outputs on seeded inputs.  The copies exist so that the port imports nothing of
 ``nvbio_tpu``; this holds them to the reference they were copied from."""
@@ -10,9 +11,12 @@ import inspect
 import numpy as np
 import pytest
 
+import nvbio_tpu.alignment.blosum as ref_blosum
 import nvbio_tpu.basic.packed as ref_packed
 import nvbio_tpu.fmindex.sharded as ref_sharded
+import nvbio_tpu.io.bwa_files as ref_bwa
 import nvbio_tpu.io.genome as ref_genome
+import nvbio_tpu.io.index_file as ref_index_file
 import nvbio_tpu.io.sam as ref_sam
 import nvbio_tpu.native as ref_native
 import nvbio_tpu.parallel.distributed as ref_dist
@@ -22,9 +26,12 @@ import nvbio_tpu.sufsort.sa as ref_sa
 import nvbio_tpu.utils.html as ref_html
 import nvbio_tpu.utils.stats as ref_stats
 import nvbio_tpu.utils.simulate as ref_simulate
+import nvbio_tpu_torch.alignment.blosum as port_blosum
 import nvbio_tpu_torch.basic.packed as port_packed
 import nvbio_tpu_torch.fmindex.sharded as port_sharded
+import nvbio_tpu_torch.io.bwa_files as port_bwa
 import nvbio_tpu_torch.io.genome as port_genome
+import nvbio_tpu_torch.io.index_file as port_index_file
 import nvbio_tpu_torch.io.sam as port_sam
 import nvbio_tpu_torch.native as port_native
 import nvbio_tpu_torch.parallel.distributed as port_dist
@@ -305,3 +312,39 @@ def test_merge_sam_shards_copy_matches(tmp_path, ext):
             return n, f.read()
 
     assert merged(port_dist, "port") == merged(ref_dist, "ref")
+
+
+@pytest.mark.parametrize("port,ref", [(port_bwa, ref_bwa),
+                                      (port_blosum, ref_blosum)],
+                         ids=["io.bwa_files", "alignment.blosum"])
+def test_whole_module_copies_are_the_reference(port, ref):
+    """io/bwa_files.py and alignment/blosum.py are NumPy only: whole
+    copies, line for line."""
+    assert inspect.getsource(port) == inspect.getsource(ref)
+
+
+def test_bwa_files_copy_round_trips_as_reference(tmp_path):
+    """write/read of .bwt, .sa, .ann, .amb and .pac: the same bytes and
+    the same parsed values from both packages."""
+    rng = np.random.default_rng(12)
+    syms = rng.integers(0, 4, 1_003).astype(np.uint8)
+    sa = rng.integers(0, 1_003, 31).astype(np.int64)
+    L2 = np.cumsum(np.bincount(syms, minlength=4))
+    for tag, mod, idx in (("p", port_bwa, port_index_file),
+                          ("r", ref_bwa, ref_index_file)):
+        mod.write_bwt(tmp_path / f"{tag}.bwt", syms, 17, None)
+        mod.write_sa(tmp_path / f"{tag}.sa", sa, 32, 17, L2, 1_003)
+        mod.write_ann(tmp_path / f"{tag}.ann", 1_003, ["a", "b"],
+                      [600, 403], [1, 0])
+        mod.write_amb(tmp_path / f"{tag}.amb", 1_003, 2, [(5, 3, "N")])
+        idx.write_pac(tmp_path / f"{tag}.pac", syms)
+    for ext, read in ((".bwt", "read_bwt"), (".sa", "read_sa"),
+                      (".ann", "read_ann"), (".amb", "read_amb")):
+        assert ((tmp_path / f"p{ext}").read_bytes()
+                == (tmp_path / f"r{ext}").read_bytes())
+        _equal(getattr(port_bwa, read)(tmp_path / f"p{ext}"),
+               getattr(ref_bwa, read)(tmp_path / f"r{ext}"))
+    assert (tmp_path / "p.pac").read_bytes() == (tmp_path / "r.pac").read_bytes()
+    _equal(port_index_file.read_pac(tmp_path / "p.pac"),
+           ref_index_file.read_pac(tmp_path / "r.pac"))
+    _equal(port_index_file.read_pac(tmp_path / "p.pac"), syms)

@@ -5,8 +5,10 @@ module, import every ``nvbio_tpu_torch`` module, build an index and map
 a tiny single-end dataset (with --un, --al, --rg-id, --stats and --html)
 and a tiny paired-end dataset on the CPU, the single-end reads through
 mem_map and qmap, build the index again with the device suffix sort and
-occ tables (--device cpu), and the reads' set-BWT.  Also: the CLIs'
-device and unported-flag errors."""
+occ tables (--device cpu), and the reads' set-BWT; export that index
+to BWA files and import them back, score proteins with protein_sw and
+correct the reads with correct_reads.  Also: the CLIs' device and
+unported-flag errors."""
 
 import os
 import subprocess
@@ -126,6 +128,28 @@ GUARDED = textwrap.dedent("""
         same = za.files == zb.files and all(
             np.array_equal(za[k], zb[k]) for k in za.files)
     print("device_build", same, open(f"{out}/b.txt").read().count("$"))
+
+    # BWA interop, protein SW and the read corrector, on the CPU
+    from nvbio_tpu_torch.tools.bwa_export import main as bwa_export
+    from nvbio_tpu_torch.tools.bwa_import import main as bwa_import
+    from nvbio_tpu_torch.tools.correct_reads import main as correct_reads
+    from nvbio_tpu_torch.tools.protein_sw import main as protein_sw
+    assert bwa_export([f"{out}/g.npz", f"{out}/bw", "--reverse"]) == 0
+    assert bwa_import([f"{out}/bw", f"{out}/gi.npz", "--lut-k", "8"]) == 0
+    open(f"{out}/q.fa", "w").write(">q1\\nMKVLAARND\\n")
+    open(f"{out}/t.fa", "w").write(">t1\\nGGMKVLAARNDGG\\n>t2\\nWWWWWWWWW\\n")
+    assert protein_sw([f"{out}/q.fa", f"{out}/t.fa", "-o", f"{out}/p.tsv",
+                       "--device", "cpu"]) == 0
+    assert correct_reads([f"{out}/r.fq", f"{out}/c.fq", "--log2-slots",
+                          "16", "--device", "cpu"]) == 0
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
+    with np.load(f"{out}/g.npz") as za, np.load(f"{out}/gi.npz") as zb:
+        same = all(np.array_equal(za[k], zb[k]) for k in za.files
+                   if k != "meta")
+    tsv = open(f"{out}/p.tsv").read().split()
+    print("interop", same, tsv[5], tsv[-1],
+          len(open(f"{out}/c.fq").read().splitlines()) // 4)
 """)
 
 
@@ -145,6 +169,9 @@ def test_port_runs_without_jax(tmp_path):
     _, n_mem, n_qmap = lines[4].split()
     assert int(n_mem) >= 36 and int(n_qmap) >= 36
     assert lines[5] == "device_build True 40"  # the same .npz; 40 reads
+    # imported = built; q1 against t1 (its copy: BLOSUM62's diagonal over
+    # MKVLAARND) and t2 (no positive cell); 40 reads out
+    assert lines[6] == "interop True 43 0 40"
 
 
 def _tiny_index(tmp_path):
@@ -194,6 +221,27 @@ def test_seed_mappers_cuda_raise_without_cuda(tmp_path, tool):
     recs = [ln.split("\t") for ln in open(tmp_path / "o.sam")
             if not ln.startswith("@")]
     assert len(recs) == 1 and recs[0][3] == "101"
+
+
+@pytest.mark.parametrize("tool", ["protein_sw", "correct_reads"])
+def test_protein_and_corrector_cuda_raise_without_cuda(tmp_path, tool):
+    """protein_sw and correct_reads take --device cuda by default and never
+    fall back to the CPU."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    main = importlib.import_module(f"nvbio_tpu_torch.tools.{tool}").main
+    (tmp_path / "p.fa").write_text(">p\nMKVLAARND\n")
+    (tmp_path / "r.fq").write_text("@r\nACGTACGTACGTACGTACGT\n+\n"
+                                   + "I" * 20 + "\n")
+    args = ([str(tmp_path / "p.fa"), str(tmp_path / "p.fa"), "-o",
+             str(tmp_path / "o.tsv")] if tool == "protein_sw"
+            else [str(tmp_path / "r.fq"), str(tmp_path / "o.fq")])
+    for extra in (["--device", "cuda"], []):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(args + extra)
+    assert main(args + ["--device", "cpu"]) == 0
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "on"]], ids=["mesh"])

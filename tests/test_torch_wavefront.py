@@ -249,4 +249,5 @@ def test_wavefront_checks_like_jax():
         long_dp.check_packed(972)
     banded_dp.reset_launch_counts()
     assert {k: f.launches for k, f in banded_dp.KERNELS.items()} == dict.fromkeys(
-        ("K1", "K2", "K3", "K4", "K5", "K5_dirs", "K6", "K7"), 0)
+        ("K1", "K2", "K3", "K4", "K5", "K5_dirs", "K5_matrix", "K6", "K7"),
+        0)
