@@ -182,7 +182,24 @@ failure:
 27. BWA interop at E. coli's length in two contigs with N runs:
    build_index, bwa_export --reverse, bwa_import (the .bwt cross-check
    passed), the imported .npz equal to the direct build's, and map_reads
-   --device cuda of 20 000 reads against both giving the same SAM.
+   --device cuda of 20 000 reads against both giving the same SAM;
+28. self_test --device cuda at full size (1 Mbp, 2 000 reads; after the
+   kernel phases): its five checks ok, K1 against its plain version
+   among them, the native CIGAR/MD builder (not the Python fallback)
+   finishing every batch;
+29. the shard-per-device mesh (after the sharded phase, on its 4-shard
+   manifest): MeshShardedMapper and MeshPairedShardedMapper with shard k
+   on cuda:(k mod device_count) beside the sequential sharded mappers in
+   the same process, 16 384 reads, 4 096 pairs and -a --max-alns 4 on
+   1 024 reads, each after a warm-up batch, in turns (sequential, mesh,
+   mesh, sequential), every result equal;
+   launch counts, reads/s and pairs/s of both schedules, each shard's
+   device and bytes; with fewer cards than shards, map_reads --mesh on
+   stops with the reference's message;
+30. fm_server serving the chr20-length g.npz on the card in a thread:
+   an SE request of 16 384 reads and a PE request of 4 096 pairs, each
+   twice (cold, warm), each SAM equal to map_reads' at the server's
+   settings (@PG masked); attach seconds, reads/s and pairs/s.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score, its flag and its
@@ -277,6 +294,14 @@ WFM_N, WFM_SEARCHES = 11_000_000, 65_536
 CORR_COV, CORR_BATCH, CORR_BIG_SLOTS, CORR_CLI_READS = 30, 65_536, 28, 50_000
 # BWA interop: reads mapped against the imported and the direct index
 BWA_READS = 20_000
+# fm_server on the chr20-length g.npz: the short-read run's first reads
+# and the paired-end run's first pairs, a request each (twice); the
+# server's MapperParams default seed interval, passed to map_reads too
+SRV_SE, SRV_PAIRS, SRV_INTERVAL = 4 * 4096, 4096, "11"
+# the shard-per-device mesh on the sharded phase's 4 shards: the reads,
+# the pairs and the -a reads (--max-alns 4) it maps beside the
+# sequential ShardedMapper
+MESH_SE, MESH_PAIRS, MESH_ALL, MESH_ALNS = 4 * 4096, 4096, 1024, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM, N_SMS = 64, 132
 # int32 operations per cell of banded Gotoh (K1-K5, K7), counted as the
@@ -1799,20 +1824,11 @@ def phase_pe(torch, np, g):
     --batch 4096 --device cuda, 5% of them with mate 2's seeds broken."""
     from nvbio_tpu_torch.ops import banded_dp
     from nvbio_tpu_torch.tools.map_reads import main as mapr
-    from nvbio_tpu_torch.utils.simulate import simulate_pairs
 
     d = os.path.join(WORK, "chr20len")
     t0 = time.perf_counter()
-    sim = simulate_pairs(g, N_PAIRS, 100, insert_mean=280, insert_sd=25,
-                         error_rate=0.02, seed=SEED + 3)
-    rng = np.random.default_rng(SEED + 3)
-    flip = rng.random(N_PAIRS) < PE_RESCUE_SHARE
-    s2 = sim["seqs2"].copy()
-    for k in range(4, 100, 12):  # tests/test_paired.py:179
-        s2[flip, k] = (s2[flip, k] + 1) % 4
-    write_pairs(f"{d}/pe1.fq", f"{d}/pe2.fq", sim, s2)
-    write_pairs(f"{d}/pe1_cpu.fq", f"{d}/pe2_cpu.fq", sim, s2, n=PE_CPU)
-    log(f"[pe] {N_PAIRS} pairs ({int(flip.sum())} with mate 2's seeds "
+    sim, n_flip = pe_inputs(np, g, d, N_PAIRS, PE_CPU)
+    log(f"[pe] {N_PAIRS} pairs ({n_flip} with mate 2's seeds "
         f"broken) made in {time.perf_counter() - t0:.1f}s")
 
     # the paired-end path's run: launch counts from here on are its own
@@ -1978,27 +1994,73 @@ def stage_breakdown(torch, np, npz, reads_fq, batch=4096, max_len=320,
             [(*c[:4], int((c[4] > 0).sum())) for c in calls])
 
 
-def phase_real_size(torch, np):
+def chr20_inputs(np, d, n_reads, n_cpu=0):
+    """The chr20-length random genome (``d``/g.fa) and ``n_reads``
+    simulated 100 bp reads (r.fq; the first ``n_cpu`` also in r_cpu.fq);
+    returns (genome, simulation)."""
     from nvbio_tpu_torch.io.fasta import write_fasta
     from nvbio_tpu_torch.io.fastq import write_fastq
     from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    os.makedirs(d, exist_ok=True)
+    g = random_genome(CHR20_BP, seed=SEED)
+    write_fasta(f"{d}/g.fa", [("chr20_random", g)])
+    sim = simulate_reads(g, n_reads, 100, error_rate=0.02, indel_rate=0.005,
+                         seed=SEED + 1)
+    for path, n in ((f"{d}/r.fq", n_reads), (f"{d}/r_cpu.fq", n_cpu)):
+        if n:
+            write_fastq(path, [
+                (f"r{i}", sim["seqs"][i].astype(np.uint8), sim["quals"][i])
+                for i in range(n)])
+    return g, sim
+
+
+def pe_inputs(np, g, d, n_pairs, n_cpu=0):
+    """``n_pairs`` simulated 2 x 100 bp pairs in ``d``/pe1.fq and pe2.fq
+    (the first ``n_cpu`` also in pe1_cpu.fq, pe2_cpu.fq), PE_RESCUE_SHARE
+    of them with mate 2's seeds broken; returns (the simulation, how
+    many were broken)."""
+    from nvbio_tpu_torch.utils.simulate import simulate_pairs
+
+    sim = simulate_pairs(g, n_pairs, 100, insert_mean=280, insert_sd=25,
+                         error_rate=0.02, seed=SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    flip = rng.random(n_pairs) < PE_RESCUE_SHARE
+    s2 = sim["seqs2"].copy()
+    for k in range(4, 100, 12):  # tests/test_paired.py:179
+        s2[flip, k] = (s2[flip, k] + 1) % 4
+    write_pairs(f"{d}/pe1.fq", f"{d}/pe2.fq", sim, s2)
+    if n_cpu:
+        write_pairs(f"{d}/pe1_cpu.fq", f"{d}/pe2_cpu.fq", sim, s2, n=n_cpu)
+    return sim, int(flip.sum())
+
+
+def build_shards(d):
+    """build_index --shard-bp SHARD_BP --shard-overlap SHARD_OVERLAP
+    --procs SHARD_PROCS of ``d``/g.fa into ``d``/sh (4 shards, or fail);
+    returns (seconds, [(start, length)] by shard)."""
+    from nvbio_tpu_torch.tools.build_index import main as build
+
+    t0 = time.perf_counter()
+    build([f"{d}/g.fa", f"{d}/sh", "--sa-sample", "4", "--lut-k", "11",
+           "--shard-bp", str(SHARD_BP), "--shard-overlap",
+           str(SHARD_OVERLAP), "--procs", str(SHARD_PROCS)])
+    build_s = time.perf_counter() - t0
+    spans = [(e["start"], e["length"])
+             for e in json.load(open(f"{d}/sh.manifest.json"))["shards"]]
+    if len(spans) != 4:
+        fail(f"--shard-bp {SHARD_BP} made {len(spans)} shards: {spans}")
+    return build_s, spans
+
+
+def phase_real_size(torch, np):
     from nvbio_tpu_torch.ops import banded_dp
     from nvbio_tpu_torch.tools.build_index import main as build
     from nvbio_tpu_torch.tools.map_reads import main as mapr
 
     d = os.path.join(WORK, "chr20len")
-    os.makedirs(d, exist_ok=True)
     t0 = time.perf_counter()
-    g = random_genome(CHR20_BP, seed=SEED)
-    write_fasta(f"{d}/g.fa", [("chr20_random", g)])
-    sim = simulate_reads(g, N_READS, 100, error_rate=0.02, indel_rate=0.005,
-                         seed=SEED + 1)
-    write_fastq(f"{d}/r.fq", [
-        (f"r{i}", sim["seqs"][i].astype(np.uint8), sim["quals"][i])
-        for i in range(N_READS)])
-    write_fastq(f"{d}/r_cpu.fq", [
-        (f"r{i}", sim["seqs"][i].astype(np.uint8), sim["quals"][i])
-        for i in range(CPU_READS)])
+    g, sim = chr20_inputs(np, d, N_READS, CPU_READS)
     log(f"[real] {CHR20_BP} bp genome + {N_READS} reads made in "
         f"{time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
@@ -3206,20 +3268,11 @@ def phase_sharded(torch, np):
     from nvbio_tpu_torch.models import paired as P
     from nvbio_tpu_torch.models.params import MapperParams
     from nvbio_tpu_torch.models.sharded_mapper import ShardedMapper
-    from nvbio_tpu_torch.tools.build_index import main as build
 
     t_phase = time.perf_counter()
     d = os.path.join(WORK, "chr20len")
     idx = f"{d}/sh.manifest.json"
-    t0 = time.perf_counter()
-    build([f"{d}/g.fa", f"{d}/sh", "--sa-sample", "4", "--lut-k", "11",
-           "--shard-bp", str(SHARD_BP), "--shard-overlap",
-           str(SHARD_OVERLAP), "--procs", str(SHARD_PROCS)])
-    build_s = time.perf_counter() - t0
-    spans = [(e["start"], e["length"])
-             for e in json.load(open(idx))["shards"]]
-    if len(spans) != 4:
-        fail(f"--shard-bp {SHARD_BP} made {len(spans)} shards: {spans}")
+    build_s, spans = build_shards(d)
     params = MapperParams(sa_sample=4, lut_k=11)
 
     def unsharded():
@@ -3332,6 +3385,286 @@ def phase_sharded(torch, np):
             "cuda_cpu_s": {"se": se_secs, "pe": pe_secs}, "rows": rows,
             "stages_ms": stages,
             "seconds": secs}
+
+
+def phase_self_test(torch):
+    """self_test --device cuda at full size (1 Mbp, 2 000 reads): all five
+    checks ok, K1 against its plain version among them, and the native
+    CIGAR/MD builder (not the Python fallback) finishing every batch."""
+    import contextlib
+    import io
+    import re
+
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.tools.self_test import main as self_test
+
+    native = []
+    real = M.ops_batch_native
+
+    def counted(*a, **kw):
+        out = real(*a, **kw)
+        native.append(out is not None)
+        return out
+
+    err = io.StringIO()
+    M.ops_batch_native = counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = self_test(["--device", DEV])
+    finally:
+        M.ops_batch_native = real
+    secs = time.perf_counter() - t0
+    log(err.getvalue().rstrip())
+    checks = [(c.strip(), v) for c, v in re.findall(
+        r"^\[self_test\] (.{34}) (ok|FAIL)  ", err.getvalue(), re.M)]
+    log(f"[self_test] self_test --device {DEV}: exit {rc} in {secs:.2f}s; "
+        f"checks {checks}; the native builder finished {sum(native)} of "
+        f"{len(native)} batches")
+    want = ["SE alignment rate", "SE true-locus accuracy", "PE proper pairs",
+            "banded Gotoh vs oracle", "K1 == its plain version",
+            "device sufsort vs SA-IS"]
+    if rc != 0 or checks != [(c, "ok") for c in want]:
+        fail(f"self_test --device {DEV}: exit {rc}, checks {checks}")
+    if not native or not all(native):
+        fail(f"self_test: ops_batch_native returned None on "
+             f"{native.count(False)} of {len(native)} batches (the Python "
+             "fallback ran on the card)")
+    return {"seconds": secs, "checks": checks, "native_batches": len(native)}
+
+
+def phase_fm_server(torch, np):
+    """fm_server serve on the chr20-length g.npz in a thread on the card:
+    one SE request of the short-read run's first SRV_SE reads and one PE
+    request of the paired-end run's first SRV_PAIRS pairs, each twice
+    (cold, then warm); each SAM equal to map_reads' on the same input at
+    the server's settings (-i 11, --batch 4096), @PG masked; attach
+    seconds, reads/s and pairs/s of each request."""
+    import tempfile
+    import threading
+
+    from nvbio_tpu_torch.tools import fm_server
+    from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+    d = os.path.join(WORK, "chr20len")
+    head_fastq(f"{d}/r.fq", f"{d}/srv.fq", SRV_SE)
+    for m in (1, 2):
+        head_fastq(f"{d}/pe{m}.fq", f"{d}/srvpe{m}.fq", SRV_PAIRS)
+    sock_dir = tempfile.mkdtemp(prefix="fms")  # AF_UNIX paths: < 108 bytes
+    sock = os.path.join(sock_dir, "fm.sock")
+    t = threading.Thread(target=fm_server.serve, args=(f"{d}/g.npz", sock),
+                         kwargs=dict(batch=4096, device=DEV), daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    while not os.path.exists(sock):
+        if not t.is_alive():
+            fail("fm_server stopped before serving")
+        time.sleep(0.05)
+    up_s = time.perf_counter() - t0
+    out = {"socket_up_s": up_s, "requests": []}
+    try:
+        for tag, req, n in (
+                ("se", {"u": f"{d}/srv.fq"}, SRV_SE),
+                ("pe", {"m1": f"{d}/srvpe1.fq", "m2": f"{d}/srvpe2.fq"},
+                 SRV_PAIRS)):
+            for turn in ("cold", "warm"):
+                t0 = time.perf_counter()
+                r = fm_server.request(sock, {"cmd": "map", **req,
+                                             "sam": f"{d}/srv_{tag}.sam"})
+                secs = time.perf_counter() - t0
+                if r["status"] != "ok":
+                    fail(f"fm_server {tag} request: {r}")
+                row = {"kind": tag, "turn": turn, "seconds": secs,
+                       "server_seconds": r["seconds"], "per_s": n / secs,
+                       "attach_seconds": r["attach_seconds"],
+                       "aligned": r["aligned"], "reads": r["reads"]}
+                out["requests"].append(row)
+                log(f"[fm_server] {turn} {tag} request: {n} "
+                    f"{'reads' if tag == 'se' else 'pairs'} in {secs:.3f}s "
+                    f"(the server's own {r['seconds']}s) = {n / secs:.0f} "
+                    f"{'reads' if tag == 'se' else 'pairs'}/s; aligned "
+                    f"{r['aligned']} of {r['reads']} reads; attach "
+                    f"{r['attach_seconds']}s")
+            inputs = (["-U", req["u"]] if tag == "se"
+                      else ["-1", req["m1"], "-2", req["m2"]])
+            mapr(["-x", f"{d}/g.npz", *inputs, "-S", f"{d}/srv_cli_{tag}.sam",
+                  "--device", DEV, "--batch", "4096", "-i", SRV_INTERVAL])
+            got = sam_records(f"{d}/srv_{tag}.sam")
+            want = sam_records(f"{d}/srv_cli_{tag}.sam")
+            if got != want:
+                n_diff = sum(a != b for a, b in zip(got, want))
+                fail(f"fm_server {tag}: {n_diff} of {len(want)} records "
+                     "differ from map_reads'")
+            log(f"[fm_server] {tag}: the server's SAM records = map_reads' "
+                f"({len(got)} records)")
+    finally:
+        try:
+            fm_server.request(sock, {"cmd": "stop"}, timeout=60)
+        finally:
+            t.join(timeout=120)
+            shutil.rmtree(sock_dir, ignore_errors=True)
+    if t.is_alive():
+        fail("fm_server did not stop")
+    out["attach_seconds"] = out["requests"][0]["attach_seconds"]
+    return out
+
+
+def _mesh_batches(np, paths, n):
+    """The first ``n`` reads (pairs, with two paths) of FASTQ ``paths``
+    packed in batches of 4096, as map_reads packs them."""
+    from nvbio_tpu_torch.io.fastq import FastqBatchReader
+    from nvbio_tpu_torch.strings.string_set import pack_reads
+
+    its = [FastqBatchReader(p, 4096) for p in paths]
+    out, got = [], 0
+    for mates in zip(*its):
+        packed = []
+        for _, seqs, quals in mates:
+            reads, lens, qmat, _ = pack_reads(seqs, quals)
+            packed += [reads, lens, qmat]
+        out.append(packed)
+        got += len(mates[0][1])
+        if got >= n:
+            break
+    return out
+
+
+def phase_mesh(torch, np):
+    """The shard-per-device mesh on the sharded phase's 4-shard manifest:
+    MeshShardedMapper and MeshPairedShardedMapper with shard k on
+    cuda:(k mod device_count), beside the sequential ShardedMapper in the
+    same process: MESH_SE reads, MESH_PAIRS pairs and -a --max-alns
+    MESH_ALNS on MESH_ALL reads, each run after a warm-up batch of each
+    mapper in turns (sequential, mesh, mesh, sequential), every result
+    equal (MapResult fields, pair info), the launch counts, reads/s and
+    pairs/s of both schedules, the device count and each shard's device
+    and bytes;
+    with fewer cards than shards, map_reads --mesh on stops with the
+    reference's message."""
+    from dataclasses import asdict
+
+    from nvbio_tpu_torch.fmindex.sharded import load_sharded_index
+    from nvbio_tpu_torch.models.mesh_sharded import (
+        MeshPairedShardedMapper, MeshShardedMapper)
+    from nvbio_tpu_torch.models.params import MapperParams
+    from nvbio_tpu_torch.models.sharded_mapper import (PairedShardedMapper,
+                                                       ShardedMapper)
+    from nvbio_tpu_torch.ops import banded_dp
+
+    t_phase = time.perf_counter()
+    d = os.path.join(WORK, "chr20len")
+    sidx, genome, _ = load_sharded_index(f"{d}/sh", device="cpu")
+    seq_idx = load_sharded_index(f"{d}/sh", device=DEV)[0]
+    S = len(sidx.shards)
+    n_dev = torch.cuda.device_count()
+    devices = ([torch.device(DEV)] * S if DEV == "cpu"
+               else [torch.device("cuda", k % n_dev) for k in range(S)])
+    # map_reads' settings: --batch 4096, --max-read-len 320
+    params = MapperParams(sa_sample=4, lut_k=11, batch_size=4096,
+                          max_read_len=320)
+    mesh = MeshShardedMapper(sidx, genome, params=params, devices=devices)
+    seq = ShardedMapper(seq_idx, genome, params=params)
+    budget = mesh.hbm_budget()
+    log(f"[mesh] {n_dev} card(s); shard k on {[str(x) for x in devices]}, "
+        f"resident bytes by shard {mesh._resident}; by device "
+        + "; ".join(f"{k}: shards {b['shards']}, resident "
+                    f"{b['resident_index'] / 2**20:.1f} MiB, transient "
+                    f"{b['transient_batch'] / 2**20:.1f} MiB, limit "
+                    f"{(b['limit'] or 0) / 2**30:.1f} GiB"
+                    for k, b in budget.items()))
+    se = _mesh_batches(np, [f"{d}/r.fq"], MESH_SE)
+    pe = _mesh_batches(np, [f"{d}/shpe1.fq", f"{d}/shpe2.fq"], MESH_PAIRS)
+
+    def sync():
+        for k in range(n_dev):
+            torch.cuda.synchronize(k)
+
+    def turns(pair, fn, batches, what):
+        """``fn(mapper, *batch)`` over ``batches`` with the sequential and
+        the mesh mapper of ``pair``: one untimed batch each (the first
+        launches of each kernel on each card load it there), then
+        sequential, mesh, mesh, sequential; every timed result equal, or
+        fail.  Returns (seconds by schedule, launches of its last run by
+        schedule)."""
+        for m in pair.values():
+            fn(m, *batches[0])
+        secs, res, launches = {"sequential": [], "mesh": []}, {}, {}
+        for tag in ("sequential", "mesh", "mesh", "sequential"):
+            banded_dp.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            got = [fn(pair[tag], *b) for b in batches]
+            sync()
+            secs[tag].append(time.perf_counter() - t0)
+            if got != res.setdefault(tag, got):
+                fail(f"mesh {what}: two {tag} runs differ")
+            launches[tag] = {k: f.launches for k, f in
+                             banded_dp.KERNELS.items() if f.launches}
+        if res["mesh"] != res["sequential"]:
+            fail(f"mesh {what}: results differ from the sequential mapper's")
+        return secs, launches
+
+    def se_fn(m, reads, lens, qmat):
+        return [asdict(r) for r in m.map_reads(reads, lens, qmat)]
+
+    def pe_fn(m, *b):
+        r1, r2, info = m.map_pairs(*b)
+        return ([asdict(r) for r in r1], [asdict(r) for r in r2], info)
+
+    def all_fn(m, reads, lens, qmat):
+        return [[asdict(a) for a in xs] for xs in m.map_reads_all(
+            reads[:MESH_ALL], lens[:MESH_ALL], qmat[:MESH_ALL],
+            max_alns=MESH_ALNS)]
+
+    out = {"devices": [str(x) for x in devices], "device_count": n_dev,
+           "resident_bytes": mesh._resident, "budget": budget}
+    secs, out["se_launches"] = turns({"sequential": seq, "mesh": mesh},
+                                     se_fn, se, "SE")
+    n_reads = sum(len(b[1]) for b in se)
+    out["se_reads_per_s"] = {k: [n_reads / v for v in vs]
+                             for k, vs in secs.items()}
+    log(f"[mesh] SE, {n_reads} reads, after a warm-up batch each, "
+        f"sequential / mesh / mesh / sequential: every MapResult equal; "
+        f"reads/s {out['se_reads_per_s']}; launches {out['se_launches']}")
+
+    pmesh = MeshPairedShardedMapper(sidx, genome, params=params,
+                                    devices=devices)
+    pseq = PairedShardedMapper(seq_idx, genome, params=params)
+    n_pairs = sum(len(b[1]) for b in pe)
+    secs, out["pe_launches"] = turns({"sequential": pseq, "mesh": pmesh},
+                                     pe_fn, pe, "PE")
+    out["pe_pairs_per_s"] = {k: [n_pairs / v for v in vs]
+                             for k, vs in secs.items()}
+    out["pe_rescued"] = {"mesh": pmesh.rescued, "sequential": pseq.rescued}
+    log(f"[mesh] PE, {n_pairs} pairs, after a warm-up batch each: every "
+        f"pair equal; pairs/s {out['pe_pairs_per_s']}; rescued (3 runs) "
+        f"{out['pe_rescued']}; launches {out['pe_launches']}")
+
+    out["all_seconds"], out["all_launches"] = turns(
+        {"sequential": seq, "mesh": mesh}, all_fn, se[:1], "-a")
+    log(f"[mesh] -a --max-alns {MESH_ALNS}, {MESH_ALL} reads: every list "
+        f"equal; seconds {out['all_seconds']}; launches "
+        f"{out['all_launches']}")
+    del mesh, seq, pmesh, pseq, seq_idx
+
+    if DEV != "cpu" and n_dev < S:
+        from nvbio_tpu_torch.tools.map_reads import main as mapr
+
+        want_msg = (f"need >= {S} devices for {S} shards, have {n_dev} (use "
+                    "the sequential ShardedMapper)")
+        try:
+            mapr(["-x", f"{d}/sh.manifest.json", "-U", f"{d}/sh_sub.fq",
+                  "-S", f"{d}/mesh_on.sam", "--device", DEV, "--mesh", "on"])
+        except ValueError as e:
+            if str(e) != want_msg:
+                fail(f"map_reads --mesh on with {n_dev} card(s): {e}")
+        else:
+            fail(f"map_reads --mesh on mapped {S} shards on {n_dev} card(s)")
+        log(f"[mesh] map_reads --mesh on with {n_dev} card(s) for {S} shards "
+            f"stops: {want_msg}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase {out['seconds']:.1f}s")
+    return out
 
 
 def write_proteins(path, names, seqs):
@@ -3888,6 +4221,8 @@ def main():
         torch.cuda.empty_cache()
         result["wide_band"] = phase_wide_band(torch, np)
         torch.cuda.empty_cache()
+        result["self_test"] = phase_self_test(torch)
+        torch.cuda.empty_cache()
         result["golden_launches"] = phase_golden(torch)
         result["golden_pe_launches"] = phase_golden_pe(torch)
         result["real"], genome, sim = phase_real_size(torch, np)
@@ -3910,6 +4245,10 @@ def main():
         result["io_flags"] = phase_io_flags(torch, np)
         torch.cuda.empty_cache()
         result["sharded"] = phase_sharded(torch, np)
+        torch.cuda.empty_cache()
+        result["mesh"] = phase_mesh(torch, np)
+        torch.cuda.empty_cache()
+        result["fm_server"] = phase_fm_server(torch, np)
         torch.cuda.empty_cache()
         result["long"] = phase_long_reads(torch, np, genome)
         torch.cuda.empty_cache()

@@ -6,7 +6,8 @@ Port of ``nvbio_tpu/models/mapper.py`` for the single-end path:
     compacted SSA locate -> compacted banded Gotoh extension (K3; K4
     for reads longer than LONG_THRESHOLD) -> top-2 + MAPQ -> escalation
     round -> winners-only directions DP (K2; K4 for long reads) +
-    run-jump walk -> native CIGAR/MD builder -> SAM
+    run-jump walk -> native CIGAR/MD builder (a Python fallback over
+    ``alignment/cigar.py`` without g++) -> SAM
 
 Every stage runs on the device of the index tensors (``"cuda"`` or
 ``"cpu"``, named by the caller).  The two DP stages go through the
@@ -29,6 +30,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..alignment.cigar import cigar_to_string, make_md_string
 from ..alignment.types import NEG_INF, AlignmentType, gap_penalties
 from ..alignment.walk import runjump_walk
 from ..basic.alphabet import dna_to_char
@@ -795,7 +797,8 @@ class Mapper:
         return np.where(strand[:, None] == 1, rc, seqs.astype(np.uint8))
 
     def _finish(self, seqs, lens, quals, fwd, res, walk):
-        """CIGAR/MD/NM from the walked op streams (native C++ builder)."""
+        """CIGAR/MD/NM from the walked op streams: the native C++ builder,
+        or, where it cannot be built, the Python fallback over cigar.py."""
         aligned = _host(fwd["aligned"])
         strand = _host(fwd["strand"])
         win_start = _host(fwd["win_start"]).astype(np.int64)
@@ -806,14 +809,14 @@ class Mapper:
         run_lens = np.where(aligned[:, None], _host(walk["run_lens"]), 0)
         ops = runs_to_packed(_host(walk["run_ops"]), run_lens)
         pats = self._corrected_pats(seqs, lens, strand)
+        p_start, t_start = _host(walk["p_start"]), _host(walk["t_start"])
+        is_global = self.params.atype == AlignmentType.GLOBAL
         native = ops_batch_native(
-            ops, _host(walk["p_start"]), _host(walk["t_start"]), aligned,
-            pats, lens, self._genome_np, win_start,
-            self.params.atype == AlignmentType.GLOBAL)
+            ops, p_start, t_start, aligned, pats, lens, self._genome_np,
+            win_start, is_global)
         if native is None:
-            raise RuntimeError(
-                "the native CIGAR/MD builder (nvbio_tpu/native/traceback.cpp)"
-                " could not be built: g++ is required")
+            native = self._finish_python(ops, p_start, t_start, aligned,
+                                         pats, lens, win_start, is_global)
         cigars, mds, nms, poss, spans = native
         return [
             MapResult(
@@ -825,6 +828,40 @@ class Mapper:
             ) if aligned[r] else MapResult(aligned=False)
             for r in range(seqs.shape[0])
         ]
+
+    def _finish_python(self, ops, p_start, t_start, aligned, pats, lens,
+                       win_start, is_global):
+        """The builder's outputs (cigars, mds, nms, poss, spans) in Python,
+        as the reference falls back without g++: decode the 2-bit walk
+        codes, prepend GLOBAL's leading D run, run-length encode, then
+        make_md_string and cigar_to_string."""
+        W = self.params.band_w
+        codes = np.stack([(ops >> s) & 3 for s in (0, 2, 4, 6)],
+                         axis=-1).reshape(ops.shape[0], -1)
+        n = ops.shape[0]
+        cigars, mds = [""] * n, [""] * n
+        nms, poss, spans = (np.zeros(n, np.int64) for _ in range(3))
+        for r in np.flatnonzero(aligned):
+            fops = ["\0MDI"[c] for c in codes[r][codes[r] != 0][::-1]]
+            ts, ps = int(t_start[r]), int(p_start[r])
+            if is_global and ts > 0:
+                fops = ["D"] * ts + fops
+                ts = 0
+            cigar_ops = []
+            for op in fops:
+                if cigar_ops and cigar_ops[-1][0] == op:
+                    cigar_ops[-1][1] += 1
+                else:
+                    cigar_ops.append([op, 1])
+            cigar_ops = [(o, ln) for o, ln in cigar_ops]
+            window = self._genome_np[win_start[r]:
+                                     win_start[r] + lens[r] + 2 * W]
+            mds[r], nms[r] = make_md_string(pats[r], window, ps, ts,
+                                            cigar_ops)
+            cigars[r] = cigar_to_string(cigar_ops, ps, int(lens[r]))
+            poss[r] = win_start[r] + ts
+            spans[r] = sum(ln for op, ln in cigar_ops if op in "MD")
+        return cigars, mds, nms, poss, spans
 
     def locate_contig(self, mr: MapResult):
         """Concat position -> (contig name, local pos); None if the

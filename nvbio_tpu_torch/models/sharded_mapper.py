@@ -35,15 +35,16 @@ from .params import MapperParams
 
 def _sharded_walk(states, ws, shard, reads, lens, quals, strand, *,
                   params: MapperParams, active=None):
-    """Winner-shard traceback in one walk: each lane's window text comes
-    from its winning shard's slice (S window gathers and selects), then
-    one winners-only DP (K2; K4 past LONG_THRESHOLD) and walk."""
+    """Winner-shard traceback in one walk on the reads' device: each
+    lane's window text comes from its winning shard's slice (S window
+    gathers, each on its shard's device, and selects), then one
+    winners-only DP (K2; K4 past LONG_THRESHOLD) and walk."""
     LT = reads.shape[1] + 2 * params.band_w
     texts = tlens = None
     for s, st in enumerate(states):
-        wsc = ws.clamp(0, st["length"] - 1)
-        t_s = window_slices(st["g"], wsc, LT)
-        tl_s = (st["length"] - wsc).clamp(0, LT)
+        wsc = ws.to(st["g"].device).clamp(0, st["length"] - 1)
+        t_s = window_slices(st["g"], wsc, LT).to(reads.device)
+        tl_s = (st["length"] - wsc).clamp(0, LT).to(reads.device)
         if texts is None:
             texts, tlens = t_s, tl_s
         else:
@@ -252,8 +253,9 @@ def _pe_merge_stacked(st1, st2, stp, l1, l2, rel, params: MapperParams):
 
 class ShardedMapper(Mapper):
     """Host orchestration over a ShardedIndex whose tensors lie on one
-    device; escalation, the host finish and SAM records are the unsharded
-    mapper's (global positions appear only on the host)."""
+    device (a shard's genome slice goes where its index is); escalation,
+    the host finish and SAM records are the unsharded mapper's (global
+    positions appear only on the host)."""
 
     def __init__(self, sidx, genome_symbols: np.ndarray,
                  params: MapperParams = MapperParams(), ref_name: str = "ref",
@@ -275,9 +277,9 @@ class ShardedMapper(Mapper):
                 # non-first shard holds clamped duplicates (_shard_cands)
                 own=(0 if i == 0 else 1, span + 1),
                 g=torch.from_numpy(gp[start:start + length + lt_pad]).to(
-                    self.device),
+                    fm.bwt_words.device),
                 gw=pack_genome_words(gp[start:start + length],
-                                     device=self.device)))
+                                     device=fm.bwt_words.device)))
         rel = self._starts[None, :] - self._starts[:, None]
         self._rel = torch.from_numpy(
             np.where(np.abs(rel) < 2**31 - 1, rel, -(2**31)).astype(
@@ -292,14 +294,21 @@ class ShardedMapper(Mapper):
         jr, jl, jq = self._upload(seqs, lens, quals)
         ushift = (seqs.shape[1] - int(lens.max())
                   if len(lens) and lens.min() == lens.max() else -1)
-        pre = stage_reads(jr, jl, jq, params=params, uniform_shift=ushift)
         fwd = _sharded_top2(
-            [_shard_cands(st, jr, jl, jq, params=params, pre=pre)
-             for st in self.shard_state], jl, params)
+            self._shard_candidates(jr, jl, jq, params, uniform_shift=ushift),
+            jl, params)
         walk = _sharded_walk(self.shard_state, fwd["win_start"],
                              fwd["shard"], jr, jl, jq, fwd["strand"],
                              params=params, active=fwd["aligned"])
         return (seqs, lens, quals, fwd, walk, R)
+
+    def _shard_candidates(self, jr, jl, jq, params, uniform_shift=-1):
+        """Every shard's ownership-masked candidate stage over one
+        uploaded chunk (strands and seeds made once)."""
+        pre = stage_reads(jr, jl, jq, params=params,
+                          uniform_shift=uniform_shift)
+        return [_shard_cands(st, jr, jl, jq, params=params, pre=pre)
+                for st in self.shard_state]
 
     def _finish_sharded(self, seqs, lens, quals, fwd, walk, R):
         """MapResults of one chunk, its win_start made global on the
@@ -333,10 +342,9 @@ class ShardedMapper(Mapper):
         p = self.params
         seqs, lens, quals = self._pad_chunk(seqs, lens, quals)
         jr, jl, jq = self._upload(seqs, lens, quals)
-        pre = stage_reads(jr, jl, jq, params=p)
         fwd = _sharded_all_merge(
-            [_shard_all(_shard_cands(st, jr, jl, jq, params=p, pre=pre),
-                        params=p, k=k) for st in self.shard_state], jl, p, k)
+            [_shard_all(c, params=p, k=k)
+             for c in self._shard_candidates(jr, jl, jq, p)], jl, p, k)
         K = fwd["score"].shape[1]
         walk = _sharded_walk(
             self.shard_state, fwd["win_start"].reshape(-1),
@@ -388,18 +396,22 @@ class PairedShardedMapper(ShardedMapper, PairedMapper):
     def _dispatch_pair_chunk(self, s1, l1, q1, s2, l2, q2):
         R = s1.shape[0]
         host, tensors = self._stage_pair_batch(s1, l1, q1, s2, l2, q2)
-        outs = [pe_map_batch(st["fm"], st["ssa"], st["gw"], st["g"],
-                             *tensors[0], *tensors[1], params=self.params,
-                             lut=st["lut"], span=st["own"])
-                for st in self.shard_state]
-        m1, m2, pair = _sharded_pe_merge(outs, tensors[0][1], tensors[1][1],
-                                         self._rel, self.params)
+        m1, m2, pair = _sharded_pe_merge(
+            self._shard_pairs(tensors), tensors[0][1], tensors[1][1],
+            self._rel, self.params)
         walks = [(mate, _sharded_walk(self.shard_state, mate["win_start"],
                                       mate["shard"], *t, mate["strand"],
                                       params=self.params,
                                       active=mate["aligned"]))
                  for mate, t in zip((m1, m2), tensors)]
         return host, walks, pair, R
+
+    def _shard_pairs(self, tensors):
+        """Every shard's pe_map_batch over one uploaded pair chunk."""
+        return [pe_map_batch(st["fm"], st["ssa"], st["gw"], st["g"],
+                             *tensors[0], *tensors[1], params=self.params,
+                             lut=st["lut"], span=st["own"])
+                for st in self.shard_state]
 
     def _collect_pair_chunk(self, handle):
         host, walks, pair, R = handle

@@ -1,12 +1,13 @@
-"""What the kernel wrappers of ``banded_dp.py`` and ``long_dp.py`` share:
-the device decision, input staging for the C entry points, the scheme
-arguments and the current stream."""
+"""What the kernel wrappers of ``ops/`` share: the device decision, input
+staging for the C entry points, the scheme arguments and the launch on
+the inputs' card."""
 
 from __future__ import annotations
 
 import torch
 
 from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
+from . import _build
 
 
 def on_cpu(*tensors) -> bool:
@@ -60,8 +61,17 @@ def scheme_args(scheme: GotohScheme, atype: AlignmentType):
             scheme.mismatch_max, scheme.n_penalty, eo, ee, fo, fe]
 
 
-def stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def call(name: str, dev: torch.device, *args) -> None:
+    """Call the kernel library's entry point ``name`` on ``args`` and
+    ``dev``'s current stream, with ``dev`` the CUDA current device: a
+    ``<<<>>>`` inside goes to the current device, so a call on tensors of
+    another card would fail (invalid resource handle) or launch there.
+    Raises on a CUDA error."""
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, name)(*args,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, name)
 
 
 def result(out):

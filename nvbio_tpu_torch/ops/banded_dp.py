@@ -174,13 +174,11 @@ def banded_score16(patterns, plens, texts, tlens, quals=None, *,
     words = lib.k7_scratch_words(nb, band_w)
     scratch = (torch.empty(words, dtype=torch.int32, device=pats.device)
                if words else None)
-    rc = lib.k7_banded_score16(
-        pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
-        tl.data_ptr(), nb, pats.shape[1], tx.shape[1], band_w,
-        *_launch.scheme_args(scheme, atype), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        _launch.stream(pats.device))
-    _build.check(lib, rc, "k7_banded_score16")
+    _launch.call(
+        "k7_banded_score16", pats.device, pats.data_ptr(), qual.data_ptr(),
+        pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), nb, pats.shape[1],
+        tx.shape[1], band_w, *_launch.scheme_args(scheme, atype),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr())
     banded_score16.launches += 1
     return _launch.result(out)
 
@@ -219,13 +217,11 @@ def banded_score(patterns, plens, texts, tlens, quals=None, *,
     pats, qual, pl, tl, out = _launch_inputs(patterns, plens, tlens, quals,
                                              band_w)
     tx = _launch.stage_texts(texts, pats.shape[0])
-    lib = _build.library()
-    rc = lib.k1_banded_score(
-        pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
-        tl.data_ptr(), pats.shape[0], pats.shape[1], tx.shape[1], band_w,
-        *_launch.scheme_args(scheme, atype), out.data_ptr(),
-        _launch.stream(pats.device))
-    _build.check(lib, rc, "k1_banded_score")
+    _launch.call(
+        "k1_banded_score", pats.device, pats.data_ptr(), qual.data_ptr(),
+        pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), pats.shape[0],
+        pats.shape[1], tx.shape[1], band_w,
+        *_launch.scheme_args(scheme, atype), out.data_ptr())
     banded_score.launches += 1
     return _launch.result(out)
 
@@ -250,13 +246,11 @@ def banded_score_packed(patterns, plens, packed, win_start, tlens,
     pats, qual, pl, tl, out = _launch_inputs(patterns, plens, tlens, quals,
                                              band_w)
     gw, ws = _launch.stage_packed(packed, win_start, pats.shape[0])
-    lib = _build.library()
-    rc = lib.k3_banded_score_packed(
-        pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), gw.data_ptr(),
-        gw.numel(), ws.data_ptr(), tl.data_ptr(), pats.shape[0],
-        pats.shape[1], band_w, *_launch.scheme_args(scheme, atype),
-        out.data_ptr(), _launch.stream(pats.device))
-    _build.check(lib, rc, "k3_banded_score_packed")
+    _launch.call(
+        "k3_banded_score_packed", pats.device, pats.data_ptr(),
+        qual.data_ptr(), pl.data_ptr(), gw.data_ptr(), gw.numel(),
+        ws.data_ptr(), tl.data_ptr(), pats.shape[0], pats.shape[1], band_w,
+        *_launch.scheme_args(scheme, atype), out.data_ptr())
     banded_score_packed.launches += 1
     return _launch.result(out)
 
@@ -288,13 +282,11 @@ def banded_directions(patterns, plens, texts, tlens, quals=None, *,
     nb, lp = pats.shape
     dirs = torch.empty((nb, lp, 2 * band_w + 1), dtype=torch.uint8,
                        device=pats.device)
-    lib = _build.library()
-    rc = lib.k2_banded_directions(
-        pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
-        tl.data_ptr(), nb, lp, tx.shape[1], band_w,
-        *_launch.scheme_args(scheme, atype), out.data_ptr(), dirs.data_ptr(),
-        _launch.stream(pats.device))
-    _build.check(lib, rc, "k2_banded_directions")
+    _launch.call(
+        "k2_banded_directions", pats.device, pats.data_ptr(),
+        qual.data_ptr(), pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), nb, lp,
+        tx.shape[1], band_w, *_launch.scheme_args(scheme, atype),
+        out.data_ptr(), dirs.data_ptr())
     banded_directions.launches += 1
     return _launch.result(out), dirs
 

@@ -34,7 +34,7 @@ import torch
 from ..alignment.batched import (SCORE_FLOOR, banded_directions_batch,
                                  banded_score_batch)
 from ..alignment.types import AlignmentType, GotohScheme, gap_penalties
-from . import _build, _launch, wavefront_dp
+from . import _launch, wavefront_dp
 
 #: widest band (2 * band_w + 1) the kernel is instantiated for
 MAX_BAND = 2048
@@ -114,16 +114,14 @@ def launch(patterns, plens, tlens, quals=None, *, texts=None, packed=None,
                                                    quals)
     nb, lp = pats.shape
     sargs = _launch.scheme_args(scheme, atype)
-    stream = _launch.stream(pats.device)
-    lib = _build.library()
+    dev = pats.device
     dirs = None
     if packed is not None:
         gw, ws = _launch.stage_packed(packed, win_start, nb)
-        name = "k4_long_score_packed"
-        rc = lib.k4_long_score_packed(
-            pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), gw.data_ptr(),
-            gw.numel(), ws.data_ptr(), tl.data_ptr(), nb, lp, band_w, *sargs,
-            out.data_ptr(), stream)
+        _launch.call(
+            "k4_long_score_packed", dev, pats.data_ptr(), qual.data_ptr(),
+            pl.data_ptr(), gw.data_ptr(), gw.numel(), ws.data_ptr(),
+            tl.data_ptr(), nb, lp, band_w, *sargs, out.data_ptr())
     else:
         tx = _launch.stage_texts(texts, nb)
         args = (pats.data_ptr(), qual.data_ptr(), pl.data_ptr(),
@@ -131,13 +129,10 @@ def launch(patterns, plens, tlens, quals=None, *, texts=None, packed=None,
                 *sargs, out.data_ptr())
         if with_dirs:
             dirs = torch.empty((nb, lp, 2 * band_w + 1), dtype=torch.uint8,
-                               device=pats.device)
-            name = "k4_long_directions"
-            rc = lib.k4_long_directions(*args, dirs.data_ptr(), stream)
+                               device=dev)
+            _launch.call("k4_long_directions", dev, *args, dirs.data_ptr())
         else:
-            name = "k4_long_score"
-            rc = lib.k4_long_score(*args, stream)
-    _build.check(lib, rc, name)
+            _launch.call("k4_long_score", dev, *args)
     launch.launches += 1
     res = _launch.result(out)
     return (res, dirs) if with_dirs else res

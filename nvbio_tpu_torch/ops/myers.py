@@ -56,11 +56,10 @@ def myers(patterns, plens, texts, tlens, *,
     scratch = torch.empty(max(lib.k6_scratch_words(nb, lp), 1),
                           dtype=torch.int32, device=dev)
     out = torch.empty((2, nb), dtype=torch.int32, device=dev)
-    rc = lib.k6_myers(pats.data_ptr(), pl.data_ptr(), tx.data_ptr(),
-                      tl.data_ptr(), nb, lp, tx.shape[1],
-                      int(atype == AlignmentType.GLOBAL), scratch.data_ptr(),
-                      out.data_ptr(), _launch.stream(dev))
-    _build.check(lib, rc, "k6_myers")
+    _launch.call("k6_myers", dev, pats.data_ptr(), pl.data_ptr(),
+                 tx.data_ptr(), tl.data_ptr(), nb, lp, tx.shape[1],
+                 int(atype == AlignmentType.GLOBAL), scratch.data_ptr(),
+                 out.data_ptr())
     myers.launches += 1
     return out[0], out[1]
 

@@ -136,14 +136,12 @@ def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
     if mat.dim() != 2 or mat.shape[1] != k:
         raise ValueError(f"substitution matrix {tuple(mat.shape)}: need "
                          "K x K")
-    lib = _build.library()
-    scratch = _scratch(lib, nb, band_w, dev)
-    rc = lib.k5_wavefront_score_matrix(
-        pats.data_ptr(), pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), nb, lp,
-        tx.shape[1], band_w, atype.value, *gap_penalties(scheme),
-        mat.data_ptr(), k, scratch.data_ptr(), out.data_ptr(),
-        _launch.stream(dev))
-    _build.check(lib, rc, "k5_wavefront_score_matrix")
+    scratch = _scratch(_build.library(), nb, band_w, dev)
+    _launch.call(
+        "k5_wavefront_score_matrix", dev, pats.data_ptr(), pl.data_ptr(),
+        tx.data_ptr(), tl.data_ptr(), nb, lp, tx.shape[1], band_w,
+        atype.value, *gap_penalties(scheme), mat.data_ptr(), k,
+        scratch.data_ptr(), out.data_ptr())
     return _launch.result(out)
 
 
@@ -155,8 +153,7 @@ def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
     nb, lp = pats.shape
     lt = tx.shape[1]
     dev = pats.device
-    lib = _build.library()
-    scratch = _scratch(lib, nb, band_w, dev)
+    scratch = _scratch(_build.library(), nb, band_w, dev)
     args = (pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
             tl.data_ptr(), nb, lp, lt, band_w,
             *_launch.scheme_args(scheme, atype), scratch.data_ptr(),
@@ -168,12 +165,10 @@ def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
                 f"wavefront flags would need {nb * ndiag * db / 2**30:.1f} "
                 "GiB; walk fewer alignments per call")
         dirs = torch.empty((nb, ndiag, db), dtype=torch.uint8, device=dev)
-        rc = lib.k5_wavefront_directions(*args, dirs.data_ptr(),
-                                         _launch.stream(dev))
-        _build.check(lib, rc, "k5_wavefront_directions")
+        _launch.call("k5_wavefront_directions", dev, *args,
+                     dirs.data_ptr())
         return _launch.result(out), dirs
-    rc = lib.k5_wavefront_score(*args, _launch.stream(dev))
-    _build.check(lib, rc, "k5_wavefront_score")
+    _launch.call("k5_wavefront_score", dev, *args)
     return _launch.result(out)
 
 

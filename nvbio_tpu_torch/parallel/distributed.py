@@ -1,20 +1,19 @@
-"""Multi-host input sharding and the deterministic SAM merge.
+"""Multi-host input sharding, the process group and the SAM merge.
 
 A copy of ``shard_fastq``, ``read_fastq_range`` and ``merge_sam_shards``
 from ``nvbio_tpu/parallel/distributed.py`` for the PyTorch port
 (package-relative imports only), which imports nothing of
-``nvbio_tpu``.  All three are host code and need no process group:
+``nvbio_tpu``, and the port of its ``init_distributed``:
 
+- every process calls :func:`init_distributed`, which joins a
+  ``torch.distributed`` process group (NCCL on cards, gloo on the CPU;
+  the counterpart of the reference's ``jax.distributed``);
 - each host reads only its own record-aligned byte range of the FASTQ
   (:func:`shard_fastq`, :func:`read_fastq_range`; ``map_reads
   --num-shards/--shard-id``);
 - shard k writes SAM records in its input order, and
   :func:`merge_sam_shards` concatenates the shards in shard order, so the
   merged record order equals a single run's (``sam_merge``).
-
-The original's ``init_distributed`` (a ``jax.distributed`` call) is
-left out: the port's process group (``torch.distributed``) comes with
-its multi-GPU mapper.
 """
 
 from __future__ import annotations
@@ -22,6 +21,44 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None, device: str = "cuda"):
+    """Join the process group from the arguments or the environment
+    (COORDINATOR_ADDRESS as host:port, NUM_PROCESSES, PROCESS_ID), with
+    NCCL for ``device`` "cuda" and gloo for "cpu", the address, world
+    size and rank given explicitly; returns (rank, world_size).  On
+    "cuda" the process first binds to its card: LOCAL_RANK where it is
+    set, else its rank modulo the host's card count (the card NCCL's
+    collectives and ``torch.device("cuda")`` then name).  Does nothing
+    in a single process: (0, 1)."""
+    coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
+    if num_processes is None:
+        num_processes = int(os.environ.get("NUM_PROCESSES", "1"))
+    if num_processes <= 1:
+        return 0, 1
+    if process_id is None:
+        process_id = int(os.environ["PROCESS_ID"])
+    if not coordinator:
+        raise ValueError("init_distributed needs a coordinator host:port "
+                         "(argument or COORDINATOR_ADDRESS)")
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        import torch
+
+        local = os.environ.get("LOCAL_RANK")
+        torch.cuda.set_device(int(local) if local is not None
+                              else process_id % torch.cuda.device_count())
+    backend = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id)
+    return dist.get_rank(), dist.get_world_size()
 
 
 def shard_fastq(path: str, num_shards: int):

@@ -25,11 +25,15 @@ reads, with the reference's flags and defaults (Bowtie2 names:
 
 -x names an unsharded .npz, or a sharded index (build_index --shard-bp)
 by its prefix or its .manifest.json; every mode and option above maps
-against either.  On a sharded index the shards run one after another
-on the one device (--mesh off, and --mesh auto with fewer devices than
-shards); the shard-per-device mesh (--mesh on, or auto with enough
-devices) is not ported.  --fm2-mode is taken and changes nothing: the
-port has no pair-BWT, and the reference's modes give identical output.
+against either.  On a sharded index --mesh picks the schedule, as in the
+reference: 'on' maps shard-per-device (MeshShardedMapper: shard k on
+card k, or every shard on the CPU under --device cpu), 'auto' does so
+where there are at least as many cards as shards (more than one), and
+'off' (or auto with fewer cards) runs the shards one after another on
+one device; the SAM is the same.  --batch must divide by the shard count
+on the mesh.  On an unsharded index --mesh is ignored.  --fm2-mode is
+taken and changes nothing: the port has no pair-BWT, and the
+reference's modes give identical output.
 
 As in the reference, -a applies to -U input only: with -1/-2 it is
 taken and has no effect.  The input and output options are the
@@ -188,18 +192,17 @@ def _parse(argv):
                    help="write a torch.profiler Chrome trace of the "
                    "mapping loop into DIR")
     p.add_argument("--mesh", default="auto", choices=["auto", "on", "off"],
-                   help="sharded index: shard-per-device over several "
-                   "devices (not ported: 'on', and 'auto' with at least "
-                   "as many devices as shards, stop); 'off' maps the "
-                   "shards one after another on one device")
+                   help="sharded index: 'on' maps shard-per-device (one "
+                   "card a shard; every shard on the CPU under --device "
+                   "cpu), 'auto' does so with at least as many cards as "
+                   "shards, 'off' maps the shards one after another on one "
+                   "device (ignored on an unsharded index)")
     p.add_argument("--fm2-mode", default="auto",
                    choices=["auto", "off", "resident", "stream"],
                    help="taken for the reference's command lines; the port "
                    "has no 2-step FM-index and maps batch-major in every "
                    "mode (the reference's modes give identical output)")
     args = p.parse_args(argv)
-    if args.mesh == "on":
-        p.error(_MESH_UNPORTED)
     if args.resume and (args.sam.endswith(".gz")
                         or args.sam.endswith(".bam") or args.m1):
         p.error("--resume supports unpaired plain .sam output")
@@ -210,10 +213,6 @@ def _parse(argv):
     if args.max_alns < 1:
         p.error("--max-alns wants a positive count")
     return p, args
-
-
-_MESH_UNPORTED = ("--mesh: mapping a sharded index shard-per-device is "
-                  "ROADMAP item 11, not ported; use --mesh off")
 
 
 def _pair(p, txt, flag):
@@ -255,6 +254,8 @@ def main(argv=None):
     from ..fmindex.sharded import load_sharded_index, read_manifest
     from ..io.index_file import load_index
     from ..models.mapper import Mapper, MapResult
+    from ..models.mesh_sharded import (MeshPairedShardedMapper,
+                                       MeshShardedMapper)
     from ..models.paired import PairedMapper
     from ..models.sharded_mapper import PairedShardedMapper, ShardedMapper
     from ..models.params import MapperParams, eval_simple_func
@@ -264,13 +265,17 @@ def main(argv=None):
     prefix = args.index[:-len(".manifest.json")] \
         if args.index.endswith(".manifest.json") else args.index
     sharded = os.path.exists(prefix + ".manifest.json")
+    use_mesh = False
     if sharded:
-        # auto takes the mesh where the reference does: at least as many
+        # the reference's choice: on, or auto with at least as many
         # devices as shards (one device on the CPU)
+        n_shards = len(read_manifest(prefix)["shards"])
         n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-        if (args.mesh == "auto"
-                and n_dev >= len(read_manifest(prefix)["shards"]) > 1):
-            p.error(_MESH_UNPORTED)
+        use_mesh = (args.mesh == "on"
+                    or (args.mesh == "auto" and n_dev >= n_shards > 1))
+        if use_mesh and args.batch % n_shards:
+            p.error(f"--mesh needs --batch divisible by the "
+                    f"{n_shards}-shard mesh")
 
     mp_mx, mp_mn = _pair(p, args.mp, "--mp")
     rdg_o, rdg_e = _pair(p, args.rdg, "--rdg")
@@ -298,8 +303,9 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     if sharded:
-        sidx, genome, meta = load_sharded_index(prefix, lut_k=args.lut_k,
-                                                device=device)
+        # the mesh places each shard on its own device
+        sidx, genome, meta = load_sharded_index(
+            prefix, lut_k=args.lut_k, device="cpu" if use_mesh else device)
         genome = genome.astype(np.uint8)
         lut_k = meta["lut_k"]
     else:
@@ -346,7 +352,14 @@ def main(argv=None):
         "lens": np.array(meta["contig_lens"], dtype=np.int64),
     }
     paired = not args.U
-    if sharded:
+    if use_mesh:
+        cls = MeshPairedShardedMapper if paired else MeshShardedMapper
+        mapper = cls(sidx, genome, params=params, contigs=contigs,
+                     devices=(None if device.type == "cuda"
+                              else [device] * n_shards))
+        print(f"[map_reads] mesh: {n_shards} shards over {n_shards} "
+              "devices (shard-per-chip)", file=sys.stderr)
+    elif sharded:
         cls = PairedShardedMapper if paired else ShardedMapper
         mapper = cls(sidx, genome, params=params, contigs=contigs)
     else:

@@ -16,7 +16,10 @@ q-gram mappers: find_mems (CUDA = CPU) and the SAM of mem_map and qmap
 (CUDA SAM = CPU SAM); K5's matrix mode (protein SW) against its plain
 version in shared-memory and scratch state, and the protein_sw TSV, the
 wavelet FM-index search and the correct_reads FASTQ under --device cuda
-equal to --device cpu.
+equal to --device cpu; self_test --device cuda (K1 against its plain
+version, the native CIGAR/MD builder), the shard-per-device mesh on
+cuda:0 x 3 equal to the sequential sharded mappers (SE, PE, -a), and
+fm_server's SE and PE SAM on cuda equal to the CPU server's.
 
 Marked ``cuda`` and skipped on machines without CUDA.  Imports no JAX,
 so it runs on a GPU machine without it; there ``tests/conftest.py``
@@ -1045,3 +1048,124 @@ def test_correct_reads_on_cuda_equals_cpu(cuda, tmp_path):
         got[dev] = (tmp_path / f"{dev}.fq").read_bytes()
     assert got["cuda"] == got["cpu"]
     assert got["cpu"] != (tmp_path / "r.fq").read_bytes()
+
+
+def test_self_test_on_cuda(cuda, capsys):
+    """self_test --device cuda: all five checks, K1 against its plain
+    version among them; the native CIGAR/MD builder, not the fallback,
+    finishes its reads."""
+    from nvbio_tpu_torch.models import mapper as M
+    from nvbio_tpu_torch.tools.self_test import main
+
+    native = []
+    real = M.ops_batch_native
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        native.append(out is not None)
+        return out
+
+    M.ops_batch_native = counted
+    try:
+        assert main(["--quick", "--device", "cuda"]) == 0
+    finally:
+        M.ops_batch_native = real
+    err = capsys.readouterr().err
+    assert "K1 == its plain version" in err and "FAIL" not in err
+    assert native and all(native)
+
+
+def _mesh_setup():
+    from nvbio_tpu_torch.fmindex.sharded import build_sharded_index
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_reads
+
+    g = random_genome(180_000, seed=31)
+    sim = simulate_reads(g, 96, 100, seed=32, error_rate=0.02)
+    return (g, build_sharded_index(g, shard_bp=60_000, overlap=2048,
+                                   sa_sample=16, lut_k=8),
+            (sim["seqs"].astype(np.uint8), np.full(96, 100, np.int32),
+             sim["quals"]))
+
+
+def test_mesh_on_one_card_equals_sequential(cuda):
+    """MeshShardedMapper with every shard on cuda:0 (3 shards) gives the
+    sequential ShardedMapper's results, SE, PE and -a."""
+    from dataclasses import asdict
+
+    from nvbio_tpu_torch.models.mesh_sharded import (
+        MeshPairedShardedMapper, MeshShardedMapper)
+    from nvbio_tpu_torch.models.params import MapperParams
+    from nvbio_tpu_torch.models.sharded_mapper import (PairedShardedMapper,
+                                                       ShardedMapper)
+    from nvbio_tpu_torch.parallel.mesh import to_device
+    from nvbio_tpu_torch.utils.simulate import simulate_pairs
+
+    g, sidx, reads = _mesh_setup()
+    on_card = type(sidx)([(*to_device(s[:3], cuda), *s[3:])
+                          for s in sidx.shards], sidx.n_total,
+                         sidx.sa_sample, sidx.lut_k)
+    p = MapperParams(batch_size=96, sa_sample=16, max_candidates=8, lut_k=8,
+                     maxins=400)
+    seq = ShardedMapper(on_card, g, params=p)
+    mesh = MeshShardedMapper(sidx, g, params=p, devices=[cuda] * 3)
+    assert [asdict(r) for r in mesh.map_reads(*reads)] == \
+           [asdict(r) for r in seq.map_reads(*reads)]
+    assert [[asdict(a) for a in xs] for xs in mesh.map_reads_all(*reads, 4)] \
+        == [[asdict(a) for a in xs] for xs in seq.map_reads_all(*reads, 4)]
+    pe = simulate_pairs(g, 96, 100, insert_mean=250, insert_sd=25, seed=12)
+    lens = np.full(96, 100, np.int32)
+    args = (pe["seqs1"].astype(np.uint8), lens, pe["quals1"],
+            pe["seqs2"].astype(np.uint8), lens, pe["quals2"])
+    got = MeshPairedShardedMapper(sidx, g, params=p,
+                                  devices=[cuda] * 3).map_pairs(*args)
+    want = PairedShardedMapper(on_card, g, params=p).map_pairs(*args)
+    assert got[2] == want[2]
+    for a, b in zip(got[:2], want[:2]):
+        assert [asdict(r) for r in a] == [asdict(r) for r in b]
+
+
+def test_fm_server_on_cuda_equals_cpu(cuda, tmp_path):
+    """fm_server serving on cuda writes the CPU server's SE and PE SAM."""
+    import tempfile
+    import threading
+    import time
+
+    from nvbio_tpu_torch.io.fasta import write_fasta
+    from nvbio_tpu_torch.io.fastq import write_fastq
+    from nvbio_tpu_torch.tools import fm_server
+    from nvbio_tpu_torch.tools.build_index import main as build
+    from nvbio_tpu_torch.utils.simulate import random_genome, simulate_pairs
+
+    g = random_genome(120_000, seed=61)
+    write_fasta(str(tmp_path / "g.fa"), [("chr1", g)])
+    pe = simulate_pairs(g, 256, 100, insert_mean=280, insert_sd=25,
+                        error_rate=0.02, seed=62)
+    for m in (1, 2):
+        write_fastq(str(tmp_path / f"p{m}.fq"), [
+            (f"p{i}", pe[f"seqs{m}"][i].astype(np.uint8), pe[f"quals{m}"][i])
+            for i in range(256)])
+    assert build([str(tmp_path / "g.fa"), str(tmp_path / "g.npz")]) == 0
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        sock = os.path.join(tempfile.mkdtemp(), "fm.sock")
+        t = threading.Thread(target=fm_server.serve,
+                             args=(str(tmp_path / "g.npz"), sock),
+                             kwargs=dict(batch=128, device=dev), daemon=True)
+        t.start()
+        while not os.path.exists(sock):
+            assert t.is_alive(), f"the {dev} server stopped before serving"
+            time.sleep(0.1)
+        for tag, req in (("se", {"u": str(tmp_path / "p1.fq")}),
+                         ("pe", {"m1": str(tmp_path / "p1.fq"),
+                                 "m2": str(tmp_path / "p2.fq")})):
+            out = str(tmp_path / f"{dev}_{tag}.sam")
+            r = fm_server.request(sock, {"cmd": "map", **req, "sam": out})
+            assert r["status"] == "ok", r
+            sams[dev, tag] = [ln for ln in open(out)
+                              if not ln.startswith("@PG")]
+        fm_server.request(sock, {"cmd": "stop"})
+        t.join(timeout=60)
+    for tag in ("se", "pe"):
+        assert sams["cuda", tag] == sams["cpu", tag]
+        assert sum(not int(ln.split("\t")[1]) & 4 for ln in sams["cuda", tag]
+                   if not ln.startswith("@")) > 0.9 * len(sams["cuda", tag])

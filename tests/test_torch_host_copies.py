@@ -1,5 +1,6 @@
 """The port's copies of the host code (``nvbio_tpu_torch.basic``,
 ``.io`` (BWA files and ``read_pac`` too), ``.alignment.blosum``,
+``.alignment.cigar``, ``.alignment.oracle``,
 ``.native``, ``.utils``, ``.parallel``, ``.sufsort.sa``, the
 bucketed sort's host helpers, the set-BWT oracle and the sharded index's
 ``_shard_bounds``) give the originals' outputs on seeded inputs.  The copies exist so that the port imports nothing of
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 
 import nvbio_tpu.alignment.blosum as ref_blosum
+import nvbio_tpu.alignment.cigar as ref_cigar
+import nvbio_tpu.alignment.oracle as ref_oracle
 import nvbio_tpu.basic.packed as ref_packed
 import nvbio_tpu.fmindex.sharded as ref_sharded
 import nvbio_tpu.io.bwa_files as ref_bwa
@@ -27,6 +30,8 @@ import nvbio_tpu.utils.html as ref_html
 import nvbio_tpu.utils.stats as ref_stats
 import nvbio_tpu.utils.simulate as ref_simulate
 import nvbio_tpu_torch.alignment.blosum as port_blosum
+import nvbio_tpu_torch.alignment.cigar as port_cigar
+import nvbio_tpu_torch.alignment.oracle as port_oracle
 import nvbio_tpu_torch.basic.packed as port_packed
 import nvbio_tpu_torch.fmindex.sharded as port_sharded
 import nvbio_tpu_torch.io.bwa_files as port_bwa
@@ -315,11 +320,14 @@ def test_merge_sam_shards_copy_matches(tmp_path, ext):
 
 
 @pytest.mark.parametrize("port,ref", [(port_bwa, ref_bwa),
-                                      (port_blosum, ref_blosum)],
-                         ids=["io.bwa_files", "alignment.blosum"])
+                                      (port_blosum, ref_blosum),
+                                      (port_cigar, ref_cigar),
+                                      (port_oracle, ref_oracle)],
+                         ids=["io.bwa_files", "alignment.blosum",
+                              "alignment.cigar", "alignment.oracle"])
 def test_whole_module_copies_are_the_reference(port, ref):
-    """io/bwa_files.py and alignment/blosum.py are NumPy only: whole
-    copies, line for line."""
+    """io/bwa_files.py, alignment/blosum.py, alignment/cigar.py and
+    alignment/oracle.py are NumPy only: whole copies, line for line."""
     assert inspect.getsource(port) == inspect.getsource(ref)
 
 

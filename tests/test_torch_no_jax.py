@@ -6,9 +6,11 @@ a tiny single-end dataset (with --un, --al, --rg-id, --stats and --html)
 and a tiny paired-end dataset on the CPU, the single-end reads through
 mem_map and qmap, build the index again with the device suffix sort and
 occ tables (--device cpu), and the reads' set-BWT; export that index
-to BWA files and import them back, score proteins with protein_sw and
-correct the reads with correct_reads.  Also: the CLIs' device and
-unported-flag errors."""
+to BWA files and import them back, score proteins with protein_sw,
+correct the reads with correct_reads, map the sharded index over the
+shard-per-device mesh (--mesh on) and serve the index with fm_server
+(one torch thread, as the other port tests).  Also: the CLIs' device errors, and no flag of the
+reference's map_reads refused as unported."""
 
 import os
 import subprocess
@@ -32,6 +34,8 @@ GUARDED = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, BlockJaxAndReference())
+    import torch
+    torch.set_num_threads(1)  # beside the test workers, as the port tests
     import nvbio_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(
         nvbio_tpu_torch.__path__, "nvbio_tpu_torch.")]
@@ -150,6 +154,27 @@ GUARDED = textwrap.dedent("""
     tsv = open(f"{out}/p.tsv").read().split()
     print("interop", same, tsv[5], tsv[-1],
           len(open(f"{out}/c.fq").read().splitlines()) // 4)
+
+    # the shard-per-device mesh on [cpu] * 3, and fm_server
+    import os, tempfile, threading, time
+    from nvbio_tpu_torch.tools import fm_server
+    assert mapr(["-x", f"{out}/sh.manifest.json", "-U", f"{out}/r.fq", "-S",
+                 f"{out}/mesh.sam", "--device", "cpu", "--batch", "48",
+                 "--mesh", "on"]) == 0
+    sock = os.path.join(tempfile.mkdtemp(), "fm.sock")  # AF_UNIX: <108 B
+    t = threading.Thread(target=fm_server.serve, args=(f"{out}/g.npz", sock),
+                         kwargs=dict(batch=32, device="cpu", once=True))
+    t.start()
+    while not os.path.exists(sock):
+        assert t.is_alive(), "fm_server stopped before serving"
+        time.sleep(0.1)
+    r = fm_server.request(sock, {"cmd": "map", "u": f"{out}/r.fq",
+                                 "sam": f"{out}/srv.sam"})
+    t.join()
+    assert not any(m in ("jax", "nvbio_tpu")
+                   or m.startswith(("jax.", "nvbio_tpu.")) for m in sys.modules)
+    print("mesh_server", records("mesh.sam") == records("o.sam"),
+          r["status"], r["reads"])
 """)
 
 
@@ -172,6 +197,8 @@ def test_port_runs_without_jax(tmp_path):
     # imported = built; q1 against t1 (its copy: BLOSUM62's diagonal over
     # MKVLAARND) and t2 (no positive cell); 40 reads out
     assert lines[6] == "interop True 43 0 40"
+    # --mesh on gives the unsharded SAM; the server mapped the 40 reads
+    assert lines[7] == "mesh_server True ok 40"
 
 
 def _tiny_index(tmp_path):
@@ -246,11 +273,21 @@ def test_protein_and_corrector_cuda_raise_without_cuda(tmp_path, tool):
 
 @pytest.mark.parametrize("flags", [["--mesh", "on"]], ids=["mesh"])
 def test_map_reads_rejects_unported_flags(tmp_path, flags, capsys):
+    """No flag of the reference's map_reads is refused as unported any
+    more: --mesh on an unsharded index is ignored, as in the reference,
+    and the SAM is the one without it."""
     from nvbio_tpu_torch.tools.map_reads import main as mapr
 
-    with pytest.raises(SystemExit):
-        mapr(_tiny_index(tmp_path) + ["--device", "cpu"] + flags)
-    assert "item 11, not ported" in capsys.readouterr().err
+    def body():
+        return [ln for ln in open(tmp_path / "o.sam")
+                if not ln.startswith("@PG")]
+
+    args = _tiny_index(tmp_path) + ["--device", "cpu"]
+    assert mapr(args + flags) == 0
+    with_flags = body()
+    assert "not ported" not in capsys.readouterr().err
+    assert mapr(args) == 0
+    assert body() == with_flags and len(with_flags) == 3
 
 
 def test_shard_build_worker_imports_neither_torch_nor_jax(tmp_path):
