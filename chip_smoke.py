@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                   # every phase, as below
     python3 chip_smoke.py --times ROOT      # the kernel phases (3, 4, 4b,
-                                            # 9, 10, 14) on ROOT's package
+                                            # 9, 10, 10b, 14) on ROOT's
+                                            # package
     python3 chip_smoke.py --turns PARENT    # --times on PARENT and on this
                                             # checkout in turns (parent,
                                             # this, this, parent)
@@ -19,7 +20,8 @@ failure:
 2. the build: nvcc compiles the kernels from nvbio_tpu_torch/ops/csrc
    (one process per source, started together); the registers, shared
    bytes and spills of every instantiation of the sub-warp group kernel
-   (K1-K3, K4 up to 128 cells) from ptxas;
+   (K1-K3, K4 up to 128 cells) and of K5's matrix full-band tier from
+   ptxas, the latter with the warps an SM it keeps resident;
 3. K1, K2, K3 against their plain PyTorch versions on the card, bit for
    bit, at the extension batch's shape (NB = 32767 windows, 128-row
    patterns, band_w = 15), for all three alignment types (K1 and K3 also
@@ -80,6 +82,13 @@ failure:
    kernel's flags against the host walk; times and GCUPS;
 10. K6 against its plain version at 2^19 x 100 bp and 8192 x 1000 bp
    (32 words), GLOBAL and SEMI_GLOBAL; times and GCUPS;
+10b. K5's matrix mode at protein_sw's shapes (phase 24's seeded
+   proteins, band_w = max(Lq, Lt)): the strided 2 048-pair subset
+   against its plain version in all three alignment types (row
+   K5_matrix) and the whole 131 072-pair batch (row K5_matrix_full),
+   timed in LOCAL, with the full-band tier's launches, warps an SM,
+   grid and scratch bytes; a banded matrix call (band_w 64) on the
+   diagonal kernel against its plain version;
 11. sw_benchmark --device cuda --long at its defaults (the JAX tool's
    TPU sizes) with the counts reset just before: K1, K4, K5 and K6
    launched; its JSON rows recorded;
@@ -165,12 +174,13 @@ failure:
    64 query proteins against 2 048 targets of 50-1000 residues (half the
    queries planted as ~30 % substituted copies in targets; BLOSUM62 at
    10/1) with the counts reset just before: K5_matrix launched and
-   nothing else, every planted pair above its query's other pairs;
-   K5_matrix against its plain version on a strided 2 048-alignment
-   subset of the all-pairs batch (band_w = max(Lq, Lt)), the whole batch
-   against the CLI's scores; times, GCUPS over the Lq x Lt cells; the
-   CLI under --device cuda and --device cpu on an 8 x 64 subset, TSV
-   bytes equal;
+   nothing else, every call through its full-band tier, every planted
+   pair above its query's other pairs; K5_matrix against its plain
+   version on a strided 2 048-alignment subset of the all-pairs batch
+   (band_w = max(Lq, Lt)), the whole batch against the CLI's scores and
+   against its plain version (run in 16 384-pair calls and timed; the
+   kernel's times are phase 10b's); the CLI under --device cuda and
+   --device cpu on an 8 x 64 subset, TSV bytes equal;
 25. the wavelet-tree protein FM-index over an 11 M-residue text (host
    build timed): 65 536 8-mer searches on the card equal to the CPU's
    on the same index, the planted ones holding their text counts;
@@ -203,11 +213,12 @@ failure:
 
 The last line is {"ok": true, "device": {...}}; the line before it
 lists the ported kernels (K1-K7, K5 as its score, its flag and its
-matrix-score entry points) as JSON, with the launches of the path that
-runs each (K2, K3: the short-read run; K4: the long-read run; K1, K5,
-K6: sw_benchmark; K5 with flags: the pass-3 run; K7: the int16 opt-in
-phase; K5_matrix: the protein_sw run; the modes' runs must launch
-theirs too), the time
+matrix-score entry points, the last also as its full-band tier) as
+JSON, with the launches of the path that runs each (K2, K3: the
+short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark; K5 with
+flags: the pass-3 run; K7: the int16 opt-in phase; K5_matrix and
+K5_matrix_full: the protein_sw run; the modes' runs must launch theirs
+too), the time
 and plain time at the phase shapes (K2 and K3 at the short-read path's
 calls, phase 4b), and the least time the card could
 take for the same call (bound_ms: int32 operations over 132 SMs x 64
@@ -284,6 +295,8 @@ ECOLI_BP, REPEATS_BP = 4_641_652, 16_000_000
 # protein_sw: query and target proteins of 50-1000 residues (the bulk of
 # UniProtKB), all pairs, and the strided subset K5_matrix is held on
 PROT_Q, PROT_T, PROT_MIN, PROT_MAX, PROT_HOLD = 64, 2_048, 50, 1_000, 2_048
+# pairs a call of the plain version over the whole batch takes
+PROT_PLAIN_CHUNK = 16_384
 # the protein FM-index: a text of about a human proteome's total length,
 # and the 8-mer searches on it
 WFM_N, WFM_SEARCHES = 11_000_000, 65_536
@@ -343,6 +356,10 @@ INT32_PEAK = None
 #: group_ptxas of the build, set by phase_build (None for a cached build
 #: or a checkout whose builder does not report by source)
 GROUP_TIERS = None
+#: k5_full_ptxas of the build with the warps an SM each keeps resident,
+#: set by phase_build (empty for a cached build or a package without the
+#: tier)
+K5_FULL_BUILD = []
 
 
 def bound(ops, nbytes, per_lane=1):
@@ -427,6 +444,19 @@ def phase_build():
                 f"{t['registers']} registers, {t['smem']} B shared, spill "
                 f"stores {t['spill_stores']} B, loads {t['spill_loads']} B")
     GROUP_TIERS = tiers
+    if _build.build_info is not None:
+        full = k5_full_ptxas(_build.build_info.get("ptxas_by_source", {})
+                             .get("wavefront_gotoh.cu", ""))
+        lib = _build.library()
+        for t in full:
+            t["warps_per_sm"] = lib.k5_full_warps_per_sm(t["atype"])
+            log(f"[build] K5 matrix full-band tier, "
+                f"{['GLOBAL', 'SEMI_GLOBAL', 'LOCAL'][t['atype']]}: "
+                f"{t.get('registers')} registers, {t.get('smem')} B static "
+                f"shared, spill stores {t.get('spill_stores')} B, loads "
+                f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an "
+                "SM resident")
+        K5_FULL_BUILD[:] = full
     return secs, tiers
 
 
@@ -3683,25 +3713,11 @@ def read_tsv_scores(np, path, nq, nt):
     return np.array([int(r.rsplit("\t", 1)[1]) for r in rows]).reshape(nq, nt)
 
 
-def phase_protein(torch, np):
-    """protein_sw at a protein-search size: PROT_Q query proteins against
-    PROT_T targets, 50-1000 residues, half the queries planted as ~30 %
-    substituted copies inside targets; BLOSUM62 at the CLI's 10/1.  The
-    CLI with --device cuda and the counts reset just before (K5_matrix
-    launched, nothing else); every planted pair outscores its query's
-    other pairs; K5-matrix against its plain version on a strided
-    2 048-alignment subset of the all-pairs batch, and the whole batch
-    against the CLI's scores; the CLI under both devices on an 8 x 64
-    subset, TSV bytes equal."""
-    from nvbio_tpu_torch.alignment.batched import banded_score_batch
-    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
-    from nvbio_tpu_torch.alignment.types import AlignmentType
-    from nvbio_tpu_torch.basic.alphabet import PROTEIN_X
-    from nvbio_tpu_torch.ops import banded_dp, wavefront_dp
-    from nvbio_tpu_torch.tools.protein_sw import main as protein_sw
-
-    d = os.path.join(WORK, "protein")
-    os.makedirs(d, exist_ok=True)
+def protein_inputs(np):
+    """protein_sw's seeded proteins: PROT_Q queries and PROT_T targets of
+    PROT_MIN-PROT_MAX residues, half the queries planted as ~30 %
+    substituted copies inside targets.  Returns (queries, targets,
+    {query: its target})."""
     rng = np.random.default_rng(SEED + 70)
     Q, T = PROT_Q, PROT_T
     qlens = rng.integers(PROT_MIN, PROT_MAX + 1, Q)
@@ -3718,6 +3734,186 @@ def phase_protein(torch, np):
         else:
             s = int(rng.integers(0, len(ts[j]) - len(seg) + 1))
             ts[j][s:s + len(seg)] = seg
+    return qs, ts, planted
+
+
+def protein_batch(torch, np, qs, ts):
+    """protein_sw's all-pairs batch on the card, laid out as the CLI lays
+    it out (query i against target j at row i * T + j), its band
+    (max(Lq, Lt): full_score_batch's), and the strided PROT_HOLD-pair
+    subset K5_matrix is held and timed on."""
+    from nvbio_tpu_torch.basic.alphabet import PROTEIN_X
+
+    dev = torch.device(DEV)
+
+    def pack(seqs):
+        m = np.full((len(seqs), max(map(len, seqs))), PROTEIN_X, np.int8)
+        for i, s in enumerate(seqs):
+            m[i, :len(s)] = s
+        return (torch.from_numpy(m).to(dev), torch.from_numpy(
+            np.array([len(s) for s in seqs], np.int32)).to(dev))
+
+    Q, T = len(qs), len(ts)
+    (pt, pl), (tt, tl) = pack(qs), pack(ts)
+    full = (pt.repeat_interleave(T, dim=0), pl.repeat_interleave(T),
+            tt.repeat(Q, 1), tl.repeat(Q))
+    idx = torch.arange(0, Q * T, max(Q * T // PROT_HOLD, 1), device=dev)
+    return full, tuple(a[idx] for a in full), max(pt.shape[1], tt.shape[1])
+
+
+def k5_full_ptxas(text):
+    """Registers, shared bytes and spills of each instantiation of the
+    full-band tier's kernel (k5_full_kernel) from nvcc's ptxas report of
+    wavefront_gotoh.cu."""
+    import re
+
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            g = re.search(r"k5_full_kernelILi(\d)E", m.group(1))
+            cur = {"atype": int(g[1])} if g else None
+            if cur:
+                out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m[1]) if m else 0
+    return out
+
+
+def k5_full_occupancy(torch, nb, lp, band_w):
+    """Warps an SM the full-band tier keeps resident (LOCAL: the
+    runtime's occupancy over its registers and shared bytes), those a
+    call over ``nb`` alignments fills (a warp an alignment) and its
+    scratch bytes at this shape; None for a package without the tier
+    (the parent of a --turns run)."""
+    from nvbio_tpu_torch.ops import _build, wavefront_dp
+
+    lib = _build.library()
+    if not hasattr(lib, "k5_full_warps_per_sm"):
+        return None
+    warps = lib.k5_full_warps_per_sm(2)
+    words = lib.k5_full_scratch_words(nb, lp, band_w, 2)
+    return {"warps_per_sm": warps, "rows_per_lane": wavefront_dp.FULL_RPL,
+            "warps_per_sm_achieved": min(warps, -(-nb // N_SMS)),
+            "scratch_bytes": 4 * words}
+
+
+def phase_k5_matrix(torch, np):
+    """K5's matrix mode at protein_sw's shapes (protein_inputs; BLOSUM62
+    at 10/1, band_w = max(Lq, Lt)): the strided PROT_HOLD-pair subset
+    (row K5_matrix) against the plain version in all three alignment
+    types, bit for bit, and timed in LOCAL (protein_sw's) beside the plain
+    version; the whole PROT_Q x PROT_T batch timed (row K5_matrix_full);
+    which tier took the calls (full_launches, where the package has it);
+    a banded matrix call on part of the subset (band_w 64) against the
+    plain version, which stays on the diagonal kernel."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch
+    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
+    from nvbio_tpu_torch.alignment.types import AlignmentType
+    from nvbio_tpu_torch.ops import banded_dp, wavefront_dp
+
+    qs, ts, _ = protein_inputs(np)
+    full, sub, band_w = protein_batch(torch, np, qs, ts)
+    scheme = MatrixScheme(gap_open=10, gap_extend=1)
+    keys = ("score", "p_end", "t_end")
+    fn = wavefront_dp.wavefront_score_matrix
+    worst = 0
+    for atype in AlignmentType:
+        kw = dict(scheme=scheme, atype=atype, band_w=band_w)
+        banded_dp.reset_launch_counts()
+        got = fn(*sub, **kw)
+        torch.cuda.synchronize()
+        n_full = getattr(fn, "full_launches", None)
+        want = banded_score_batch(*sub, None, twin=True, **kw)
+        err = max_abs_err(torch, [got[k] for k in keys],
+                          [want[k] for k in keys])
+        if err or fn.launches != 1 or n_full not in (None, 1):
+            fail(f"K5_matrix {atype.name} over the subset: max_abs_err "
+                 f"{err}, launches {fn.launches}, full-band {n_full}")
+        worst = max(worst, err)
+    log(f"[k5m] K5_matrix = its plain version over {len(sub[0])} protein "
+        f"pairs, band_w {band_w}, all three types (full-band tier launches "
+        f"a call: {n_full})")
+    kw = dict(scheme=scheme, atype=AlignmentType.LOCAL, band_w=band_w)
+    narrow = tuple(a[:512, :200] if a.dim() == 2 else a[:512].clamp(max=200)
+                   for a in sub)
+    nkw = dict(kw, band_w=64)
+    banded_dp.reset_launch_counts()
+    got = fn(*narrow, **nkw)
+    torch.cuda.synchronize()
+    n_full = getattr(fn, "full_launches", 0)
+    want = banded_score_batch(*narrow, None, twin=True, **nkw)
+    err = max_abs_err(torch, [got[k] for k in keys], [want[k] for k in keys])
+    if err or fn.launches != 1 or n_full:
+        fail(f"banded K5_matrix (band_w 64) differs from its plain version "
+             f"({err}) or left the diagonal kernel ({n_full})")
+    log("[k5m] a banded matrix call (512 pairs x 200, band_w 64) stays on "
+        "the diagonal kernel and equals its plain version")
+
+    def k5m():
+        return fn(*sub, **kw)
+
+    def plain():
+        return banded_score_batch(*sub, None, twin=True, **kw)
+
+    def k5m_full():
+        return fn(*full, **kw)
+
+    cells = int((sub[1].to(torch.int64) * sub[3]).sum())
+    cells_full = int((full[1].to(torch.int64) * full[3]).sum())
+    ms, pms = cuda_ms(torch, k5m, 5), cuda_ms(torch, plain, 1)
+    full_ms = cuda_ms(torch, k5m_full, 3)
+    nb, nb_full = len(sub[0]), len(full[0])
+    bms, by, yard = gotoh_bound(cells, dp_bytes(*sub, out_bytes=12 * nb))
+    fbms, fby, fyard = gotoh_bound(cells_full, dp_bytes(
+        *full, out_bytes=12 * nb_full))
+    occ = k5_full_occupancy(torch, nb, sub[0].shape[1], band_w)
+    occ_full = k5_full_occupancy(torch, nb_full, sub[0].shape[1], band_w)
+    log(f"[k5m] LOCAL subset ({nb} pairs): kernel {ms:.3f} ms "
+        f"({cells / ms / 1e6:.1f} GCUPS over its {cells} Lq x Lt cells), "
+        f"plain {pms:.1f} ms; bound {bms:.4f} ms ({by}); the whole batch "
+        f"({nb_full} pairs): {full_ms:.3f} ms = "
+        f"{cells_full / full_ms / 1e6:.1f} GCUPS, bound {fbms:.3f} ms "
+        f"({fby}); full-band tier: {occ_full}")
+    return {"K5_matrix": {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                          "bound_by": by, "yard_bound_ms": yard,
+                          "cells": cells, "nb": nb, "max_abs_err": worst,
+                          "gcups": cells / ms / 1e6, "occupancy": occ},
+            "K5_matrix_full": {"ms": full_ms, "plain_ms": None,
+                               "bound_ms": fbms, "bound_by": fby,
+                               "yard_bound_ms": fyard, "cells": cells_full,
+                               "nb": nb_full, "max_abs_err": worst,
+                               "gcups": cells_full / full_ms / 1e6,
+                               "occupancy": occ_full}}
+
+
+def phase_protein(torch, np):
+    """protein_sw at a protein-search size (protein_inputs): the CLI with
+    --device cuda and the counts reset just before (K5_matrix launched,
+    nothing else, every call through the full-band tier); every planted
+    pair outscores its query's other pairs; K5-matrix against its plain
+    version on the strided subset of the all-pairs batch, and the whole
+    batch against the CLI's scores (both timed in the kernel phase,
+    phase_k5_matrix); the CLI under both devices on an 8 x 64 subset, TSV
+    bytes equal."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch
+    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
+    from nvbio_tpu_torch.alignment.types import AlignmentType
+    from nvbio_tpu_torch.ops import banded_dp, wavefront_dp
+    from nvbio_tpu_torch.tools.protein_sw import main as protein_sw
+
+    d = os.path.join(WORK, "protein")
+    os.makedirs(d, exist_ok=True)
+    Q, T = PROT_Q, PROT_T
+    qs, ts, planted = protein_inputs(np)
     qn, tn = [f"q{i}" for i in range(Q)], [f"t{j}" for j in range(T)]
     write_proteins(f"{d}/q.fa", qn, qs)
     write_proteins(f"{d}/t.fa", tn, ts)
@@ -3733,6 +3929,10 @@ def phase_protein(torch, np):
         fail(f"the protein_sw run launched {launches} besides K5_matrix "
              f"{wavefront_dp.wavefront_score_matrix.launches}")
     n_k5m = wavefront_dp.wavefront_score_matrix.launches
+    n_full = wavefront_dp.wavefront_score_matrix.full_launches
+    if n_full != n_k5m:
+        fail(f"the protein_sw run made {n_k5m} matrix-mode calls, only "
+             f"{n_full} through the full-band tier")
     sc = read_tsv_scores(np, f"{d}/full.tsv", Q, T)
     margin = min(int(sc[i, j]) - int(np.delete(sc[i], j).max())
                  for i, j in planted.items())
@@ -3741,62 +3941,44 @@ def phase_protein(torch, np):
              f"(least margin {margin})")
     log(f"[protein] protein_sw --device cuda: {Q} x {T} = {Q * T} "
         f"alignments in {run_s:.2f}s ({Q * T / run_s:.0f} alignments/s, "
-        f"FASTA parse and TSV write included); K5_matrix launched {n_k5m}; "
-        f"every planted pair outscores its query's others (least margin "
-        f"{margin})")
+        f"FASTA parse and TSV write included); K5_matrix launched {n_k5m}, "
+        f"{n_full} through the full-band tier; every planted pair "
+        f"outscores its query's others (least margin {margin})")
 
-    # the CLI's batch, laid out as it lays it out
-    dev = torch.device(DEV)
-
-    def pack(seqs):
-        m = np.full((len(seqs), max(map(len, seqs))), PROTEIN_X, np.int8)
-        for i, s in enumerate(seqs):
-            m[i, :len(s)] = s
-        return (torch.from_numpy(m).to(dev), torch.from_numpy(
-            np.array([len(s) for s in seqs], np.int32)).to(dev))
-
-    (pt, pl), (tt, tl) = pack(qs), pack(ts)
-    full = (pt.repeat_interleave(T, dim=0), pl.repeat_interleave(T),
-            tt.repeat(Q, 1), tl.repeat(Q))
-    band_w = max(pt.shape[1], tt.shape[1])
+    full, sub, band_w = protein_batch(torch, np, qs, ts)
     kw = dict(scheme=MatrixScheme(gap_open=10, gap_extend=1),
               atype=AlignmentType.LOCAL, band_w=band_w)
-    idx = torch.arange(0, Q * T, max(Q * T // PROT_HOLD, 1), device=dev)
-    sub = tuple(a[idx] for a in full)
-
-    def k5m():
-        return wavefront_dp.wavefront_score_matrix(*sub, **kw)
-
-    def plain():
-        return banded_score_batch(*sub, None, twin=True, **kw)
-
-    def k5m_full():
-        return wavefront_dp.wavefront_score_matrix(*full, **kw)
-
-    got, want = k5m(), plain()
+    got = wavefront_dp.wavefront_score_matrix(*sub, **kw)
+    want = banded_score_batch(*sub, None, twin=True, **kw)
     torch.cuda.synchronize()
     keys = ("score", "p_end", "t_end")
     err = max_abs_err(torch, [got[k] for k in keys], [want[k] for k in keys])
     if err:
         fail(f"K5_matrix differs from its plain version: max_abs_err {err}")
-    got_full = k5m_full()
+    got_full = wavefront_dp.wavefront_score_matrix(*full, **kw)
     if not np.array_equal(got_full["score"].reshape(Q, T).cpu().numpy(), sc):
         fail("K5_matrix over the whole batch differs from the CLI's TSV")
-    nb = len(idx)
-    cells = int((sub[1].to(torch.int64) * sub[3]).sum())
-    cells_full = int((full[1].to(torch.int64) * full[3]).sum())
-    ms, pms = cuda_ms(torch, k5m, 5), cuda_ms(torch, plain, 1)
-    full_ms = cuda_ms(torch, k5m_full, 2)
-    bms, by, yard = gotoh_bound(cells, dp_bytes(*sub, out_bytes=12 * nb))
-    full_bms = gotoh_bound(cells_full, dp_bytes(*full,
-                                                out_bytes=12 * Q * T))[0]
-    log(f"[protein] K5_matrix = its plain version over {nb} of the batch's "
-        f"alignments (band_w {band_w}): kernel {ms:.3f} ms "
-        f"({cells / ms / 1e6:.1f} GCUPS over the {cells} cells Lq x Lt), "
-        f"plain {pms:.1f} ms; bound {bms:.4f} ms ({by}); the whole batch "
-        f"{full_ms:.2f} ms = {cells_full / full_ms / 1e6:.1f} GCUPS over "
-        f"{cells_full} cells (bound {full_bms:.3f} ms), its scores = the "
-        "CLI's")
+    # the plain version over the whole batch, PROT_PLAIN_CHUNK pairs a
+    # call, timed as one run (its memory grows with the chunk)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    parts = [banded_score_batch(*(a[i:i + PROT_PLAIN_CHUNK] for a in full),
+                                None, twin=True, **kw)
+             for i in range(0, Q * T, PROT_PLAIN_CHUNK)]
+    stop.record()
+    torch.cuda.synchronize()
+    full_plain_ms = start.elapsed_time(stop)
+    full_err = max_abs_err(torch, [got_full[k] for k in keys],
+                           [torch.cat([p[k] for p in parts]) for k in keys])
+    if full_err:
+        fail(f"K5_matrix over the whole batch differs from its plain "
+             f"version: max_abs_err {full_err}")
+    del parts
+    log(f"[protein] K5_matrix = its plain version over {len(sub[0])} of the "
+        f"batch's alignments (band_w {band_w}) and over all {Q * T} "
+        f"(plain {full_plain_ms:.0f} ms in {PROT_PLAIN_CHUNK}-pair calls); "
+        "the whole batch's scores = the CLI's")
 
     # the CLI under both devices on an 8 x 64 subset
     qi = list(range(8))
@@ -3819,16 +4001,10 @@ def phase_protein(torch, np):
         fail("the 8 x 64 subset's scores differ from the whole run's")
     log(f"[protein] 8 x 64 subset: --device cuda TSV = --device cpu TSV "
         f"(= the whole run's scores); {secs[DEV]:.2f}s / {secs['cpu']:.2f}s")
-    return {"launches": {"K5_matrix": n_k5m}, "run_s": run_s,
-            "alignments_per_s": Q * T / run_s, "planted_margin": margin,
-            "band_w": band_w,
-            "row": {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                    "bound_by": by, "yard_bound_ms": yard, "cells": cells,
-                    "nb": nb, "max_abs_err": err,
-                    "gcups": cells / ms / 1e6},
-            "full": {"ms": full_ms, "cells": cells_full,
-                     "gcups": cells_full / full_ms / 1e6,
-                     "bound_ms": full_bms},
+    return {"launches": {"K5_matrix": n_k5m, "K5_matrix_full": n_full},
+            "run_s": run_s, "alignments_per_s": Q * T / run_s,
+            "planted_margin": margin, "band_w": band_w, "max_abs_err": err,
+            "full_plain_ms": full_plain_ms, "full_max_abs_err": full_err,
             "subset_s": secs}
 
 
@@ -4075,6 +4251,9 @@ def kernel_phases(torch, np, result, only=None):
     if run("K6", "K6_32w"):
         k["K6"] = phase_k6(torch, np)
     torch.cuda.empty_cache()
+    if run("K5_matrix", "K5_matrix_full"):
+        k.update(phase_k5_matrix(torch, np))
+    torch.cuda.empty_cache()
     result["bench_k1"] = (phase_bench_k1(torch, np)
                           if run("K1_bench", "K1_w31") else {})
     torch.cuda.empty_cache()
@@ -4091,8 +4270,8 @@ def timed_rows(result):
     the group kernel's block shape for the K1-K4 rows; logged one a
     line."""
     k, ps, bk = result["kernels"], result["path_shapes"], result["bench_k1"]
-    rows = {n: k[n] for n in ("K1", "K2", "K3", "K4", "K5", "K5_dirs", "K6")
-            if n in k}
+    rows = {n: k[n] for n in ("K1", "K2", "K3", "K4", "K5", "K5_dirs", "K6",
+                              "K5_matrix", "K5_matrix_full") if n in k}
     rows.update(bk)
     if "K4" in k:
         k4 = k["K4"]
@@ -4112,6 +4291,8 @@ def timed_rows(result):
            "K4": occupancy("K4", LONG_W, LONG_NB, False),
            "K4_dirs": occupancy("K4", LONG_W, LONG_DIRS_NB, True)}
     occ.update({n: r["occupancy"] for n, r in ps.items()})
+    occ.update({n: k[n]["occupancy"] for n in ("K5_matrix", "K5_matrix_full")
+                if n in k})
     out = {}
     for name, r in rows.items():
         o = out[name] = {"ms": r["ms"], "bound_ms": r["bound_ms"],
@@ -4213,6 +4394,7 @@ def main():
               "int32_peak": INT32_PEAK}
     try:
         result["build_s"], result["group_tiers"] = phase_build()
+        result["k5_full_build"] = K5_FULL_BUILD
         kernel_phases(torch, np, result)
         result["sw_benchmark"] = phase_sw_benchmark(torch)
         result["tool_shapes"] = phase_tool_shapes(torch, np)
@@ -4303,9 +4485,14 @@ def main():
              "int16 opt-in phase"),
             ("K5_matrix", "wavefront_gotoh.cu",
              "nvbio_tpu/alignment/extra.py:40 -> "
+             "nvbio_tpu/alignment/batched.py:41", "protein_sw run"),
+            ("K5_matrix_full", "wavefront_gotoh.cu",
+             "nvbio_tpu/alignment/extra.py:40 -> "
              "nvbio_tpu/alignment/batched.py:41", "protein_sw run")):
-        k = (result["protein"]["row"] if name == "K5_matrix"
-             else result["kernels"][name])
+        k = result["kernels"][name]
+        if name == "K5_matrix_full":  # its plain version over the batch
+            k = dict(k, plain_ms=result["protein"]["full_plain_ms"],
+                     max_abs_err=result["protein"]["full_max_abs_err"])
         if name in ("K2", "K3"):  # timed at the shape the path calls it
             p = result["path_shapes"][f"{name}_path"]
             k = dict(p, max_abs_err=max(k["max_abs_err"], p["max_abs_err"]))

@@ -64,6 +64,8 @@ _SIGNATURES = {
     # pats, plens, texts, tlens, nb, lp, lt, band_w, atype, eo, ee, fo,
     # fe, mat, mat_k, scratch, out, stream
     "k5_wavefront_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
+    # the same arguments, band_w >= max(lp, lt) (the full-band tier)
+    "k5_full_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
     # pats, plens, texts, tlens, nb, lp, lt, global, scratch, out, stream
     "k6_myers": [_P] * 4 + [_I] * 4 + [_P] * 3,
     # as k1_banded_score, plus the scratch before the stream
@@ -72,6 +74,9 @@ _SIGNATURES = {
 #: entry points that return a size, not a cudaError_t
 _SIZES = {
     "k5_state_words": ([_I], ctypes.c_int),  # band_w
+    # nb, lp, band_w, atype
+    "k5_full_scratch_words": ([_I] * 4, ctypes.c_longlong),
+    "k5_full_warps_per_sm": ([_I], ctypes.c_int),  # atype
     "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
     "k7_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, band_w
 }

@@ -3,6 +3,9 @@
 //   k5_wavefront_score       score + sink, raw twin values
 //   k5_wavefront_score_matrix  the same with substitution scores from a
 //                            K x K table (protein SW: BLOSUM62)
+//   k5_full_score_matrix     the matrix mode's full-band tier, for
+//                            band_w >= max(Lp, Lt) (below)
+//   k5_full_scratch_words, k5_full_warps_per_sm  its scratch and grid
 //   k5_wavefront_directions  score + sink + one 4-bit flag per band cell,
 //                            in the diagonal layout of ops/wavefront_dp.py
 //   k5_state_words           the per-block scratch a band needs when its
@@ -53,11 +56,42 @@
 // the table (K <= MAX_MAT_K) in shared memory before its diagonal loop.
 // MAT is a template parameter: the formula instantiations are unchanged.
 //
-// What bounds it on the H100: per cell about 30 int32 operations and 9
-// shared-memory accesses behind one barrier per diagonal, with one block
-// of up to 1024 threads per alignment; the parallelism is the cells of a
-// diagonal times the alignments in flight.  With flags, the (w + 1) / 2
-// bytes written per diagonal.
+// The matrix mode has two tiers; the wrapper (ops/wavefront_dp.py) picks
+// one by shape.  Narrower bands take k5_kernel<..., MAT>.  Calls with
+// band_w >= max(Lp, Lt) (every full_score_batch call: protein_sw) take
+// k5_full_kernel: there every cell of rows 1..plen and columns 0..tlen
+// lies in the band (x == w cannot happen for r >= 1, and x == -w only at
+// j = 0, which left_out covers), so the DP is the full-matrix Gotoh and
+// k5_kernel's rings, barriers and mostly idle threads (a 50 x 50 pair
+// kept one warp of a 512-thread block busy) are not needed.  One warp
+// owns one alignment: lane l holds FB_RPL consecutive pattern rows in
+// registers (H, Hhat of the previous column and E, and each row's best
+// H with its first column) and works column j at step j + l, taking H
+// and F of the row above from lane l - 1 by a shuffle; no cell touches
+// memory except its substitution, the table entry of its row's and its
+// column's symbols from the block's shared copy (a lane-private query
+// profile measured slower: its shared memory cost resident warps).
+// Patterns past 32 * FB_RPL rows take passes:
+// lane 31 leaves its last row's (H, F) a column in a per-warp boundary
+// row in device scratch, read back 32 columns a load by the next pass.
+// Warps take alignments from an atomic counter over a persistent grid
+// of the blocks the card keeps resident, so the scratch follows the
+// warps in flight.  The cell is k5_kernel's int32 expressions in DPX
+// form (__viaddmax_s32, __viaddmax_s32_relu); the sinks keep the twin's
+// tie order (a row's first column, then rows in order, then better()
+// across lanes).  If tlens exceed Lt the band's upper edge can bind
+// (tlen > band_w): such an alignment runs the sweep with k5_kernel's
+// x == w mask.  What bounds it: ~10 int32 operations and a table load a
+// cell, plus a step's shuffles, text load and guards shared by FB_RPL
+// cells; the warps an SM its registers leave resident; lanes idle where
+// plen is not a multiple of 32 * FB_RPL, and the 31-step skew of each
+// pass.
+//
+// What bounds the diagonal kernel on the H100: per cell about 30 int32
+// operations and 9 shared-memory accesses behind one barrier per
+// diagonal, with one block of up to 1024 threads per alignment; the
+// parallelism is the cells of a diagonal times the alignments in flight.
+// With flags, the (w + 1) / 2 bytes written per diagonal.
 
 #include <limits.h>
 
@@ -300,6 +334,250 @@ Args k5_args(const void* pats, const void* quals, const void* plens,
   return a;
 }
 
+// ---------------------------------------------------------------------------
+// The matrix mode's full-band tier (k5_full_score_matrix): one warp an
+// alignment sweeping text columns, for calls with band_w >= max(Lp, Lt).
+
+// pattern rows a lane holds in registers, and rows a warp sweeps a pass
+// (on an H100, protein_sw's 131 072-pair batch took 40.3 ms at 4 rows,
+// 38.0 at 6, 37.4 at 8 and 37.0 at 12: PERF.md)
+constexpr int FB_RPL = 8;
+constexpr int FB_ROWS = 32 * FB_RPL;
+// warps (alignments in flight) a block
+constexpr int FB_WARPS = 4;
+// scratch words ahead of the boundary rows: the alignment counter
+constexpr int FB_COUNTER_WORDS = 4;
+
+// columns of a warp's boundary row: a pass ends at column
+// min(tlen, its last row + w) (tlen alone when tlen <= w), so lp + w + 1
+// hold every column any call reaches
+long long fb_cols(int lp, int band_w) {
+  return static_cast<long long>(lp) + band_w + 1;
+}
+
+__device__ __forceinline__ int fb_text_symbol(const int8_t* text, int lt,
+                                              int j) {
+  return (j >= 1 && j - 1 < lt) ? __ldg(text + j - 1) : PAD_SYMBOL;
+}
+
+// One alignment on one warp; returns its sink (reduced to lane 0) in the
+// twin's tie order.  Lane l holds rows r0 .. r0 + FB_RPL - 1 (r0 = base +
+// l * FB_RPL + 1) of the pass at rows base + 1 ..: their H, Hhat and E of
+// the previous column and, for the sinks, each row's best H and its first
+// column.  At step s the lane works column j = s - l: H and F of the row
+// above its first row come from lane l - 1 (its last row, the step
+// before), for lane 0 from row 0 (the first pass) or from the boundary
+// row the pass above left in ``bound`` (32 columns a load, shuffled out).
+// EDGE (tlen > band_w: the band's upper edge binds, as it can only when
+// tlens exceed Lt) masks the vertical input at j - r == w, as k5_kernel's
+// x == w does, and keeps cells past it out of the sinks.
+template <int ATYPE, bool EDGE>
+__device__ __forceinline__ Best fb_sweep(const Args& a, int b,
+                                         const int32_t* mat_s, int mat_k,
+                                         int2* bound, int lane) {
+  const Scheme sc = a.sc;
+  const int w = a.band_w, lp = a.lp, lt = a.lt;
+  const int plen = a.plens[b], tlen = a.tlens[b];
+  const int R = max(min(plen, lp), 0);
+  const int EMASK = NEG_INF - (sc.eo + sc.ee);
+  const int foe = sc.fo + sc.fe, eoe = sc.eo + sc.ee;
+  const int8_t* pat = a.pats + static_cast<int64_t>(b) * lp;
+  const int8_t* text = a.texts + static_cast<int64_t>(b) * lt;
+  Best best = ATYPE == LOCAL ? Best{0, 0, w} : Best{NEG_INF, plen, 0};
+
+  for (int base = 0; tlen >= 0 && base < R; base += FB_ROWS) {
+    const int rows = min(R - base, FB_ROWS);
+    const int nl = (rows + FB_RPL - 1) / FB_RPL;  // lanes with a row
+    const bool more = base + FB_ROWS < R;         // a pass follows
+    const int jmax = EDGE ? min(tlen, base + rows + w) : tlen;
+    const int r0 = base + lane * FB_RPL + 1;
+    int pb[FB_RPL];  // clipped row symbol * K: the row's table entries
+#pragma unroll
+    for (int i = 0; i < FB_RPL; ++i) {
+      const int r = r0 + i;
+      const int p = r <= R ? __ldg(pat + r - 1) : 0;
+      pb[i] = min(max(p, 0), mat_k - 1) * mat_k;
+    }
+    int Hp[FB_RPL], Hh[FB_RPL], Ev[FB_RPL], bh[FB_RPL], bj[FB_RPL];
+#pragma unroll
+    for (int i = 0; i < FB_RPL; ++i) {  // column -1 (k5_kernel's left_out)
+      Hp[i] = NEG_INF;
+      Hh[i] = NEG_INF;
+      Ev[i] = EMASK;
+      bh[i] = ATYPE == LOCAL ? 0 : NEG_INF;
+      bj[i] = 0;
+    }
+    int out_h = NEG_INF, out_f = NEG_INF;  // the last row's H, F
+    int up_prev = NEG_INF;  // H(r0 - 1, j - 1): the first row's diagonal
+    // the boundary row above, 32 columns a load: cur serves steps s & ~31
+    int cur_h = NEG_INF, cur_f = NEG_INF, nxt_h = NEG_INF, nxt_f = NEG_INF;
+    if (base > 0 && lane <= jmax) {
+      const int2 v = bound[lane];
+      nxt_h = v.x;
+      nxt_f = v.y;
+    }
+    int tsym = PAD_SYMBOL;  // the text symbol of the lane's next column
+    const int nsteps = jmax + nl;
+    for (int s = 0; s < nsteps; ++s) {
+      const int j = s - lane;
+      int up_h = __shfl_up_sync(FULL, out_h, 1);
+      int up_f = __shfl_up_sync(FULL, out_f, 1);
+      if (base > 0) {
+        if ((s & 31) == 0) {
+          cur_h = nxt_h;
+          cur_f = nxt_f;
+          const int c = s + 32 + lane;
+          if (c <= jmax) {
+            const int2 v = bound[c];
+            nxt_h = v.x;
+            nxt_f = v.y;
+          }
+        }
+        const int bh0 = __shfl_sync(FULL, cur_h, s & 31);
+        const int bf0 = __shfl_sync(FULL, cur_f, s & 31);
+        if (lane == 0) {
+          up_h = bh0;
+          up_f = bf0;
+        }
+      } else if (lane == 0) {  // the twin's initial row
+        up_h = ATYPE == GLOBAL ? (s == 0 ? 0 : -sc.eo - sc.ee * s) : 0;
+        up_f = NEG_INF;
+      }
+      const int ts = tsym;
+      tsym = fb_text_symbol(text, lt, j + 1);
+      if (lane < nl && j >= 0 && j <= jmax) {
+        const int tc = min(max(ts, 0), mat_k - 1);
+        int sub[FB_RPL];
+#pragma unroll
+        for (int i = 0; i < FB_RPL; ++i) sub[i] = mat_s[pb[i] + tc];
+        int diag = up_prev;
+        up_prev = up_h;
+#pragma unroll
+        for (int i = 0; i < FB_RPL; ++i) {
+          if (EDGE && j == r0 + i + w) {
+            up_h = NEG_INF;
+            up_f = NEG_INF;
+          }
+          // k5_kernel's expressions: F, Hhat (LOCAL floor), E, H
+          const int F = __viaddmax_s32(up_h, -foe, up_f - sc.fe);
+          const int hhat = ATYPE == LOCAL
+                               ? __viaddmax_s32_relu(diag, sub[i], F)
+                               : __viaddmax_s32(diag, sub[i], F);
+          const int E = __viaddmax_s32(Ev[i], -sc.ee, Hh[i] - eoe);
+          const int H = max(hhat, E);  // LOCAL: hhat >= 0 already
+          diag = Hp[i];
+          Hp[i] = H;
+          Hh[i] = hhat;
+          Ev[i] = E;
+          if (ATYPE != GLOBAL && H > bh[i] && (!EDGE || j <= r0 + i + w)) {
+            bh[i] = H;
+            bj[i] = j;
+          }
+          up_h = H;
+          up_f = F;
+        }
+        out_h = up_h;
+        out_f = up_f;
+        if (more && lane == 31) bound[j] = make_int2(up_h, up_f);
+      }
+    }
+    if (ATYPE == GLOBAL) {  // H(plen, tlen): the last column's H of row R
+      if (!more && plen == R) {
+#pragma unroll
+        for (int i = 0; i < FB_RPL; ++i)
+          if (r0 + i == R) best.h = Hp[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < FB_RPL; ++i) {
+        const int r = r0 + i;
+        if (r <= R && (ATYPE == LOCAL || r == plen)) {
+          const Best c{bh[i], r, bj[i] - r + w};
+          if (better(c, best)) best = c;
+        }
+      }
+    }
+    __syncwarp();  // the boundary row is complete before the next pass
+  }
+#pragma unroll
+  for (int delta = 16; delta > 0; delta >>= 1) {
+    const Best o = shfl_best(best, delta);
+    if (better(o, best)) best = o;
+  }
+  return best;
+}
+
+// A persistent grid: each warp takes alignments from the counter at
+// scratch[0] until the batch is done, with its boundary row (cols int2)
+// after the counter words.
+template <int ATYPE>
+__global__ void __launch_bounds__(FB_WARPS * 32)
+    k5_full_kernel(Args a, const int32_t* mat, int mat_k, int32_t* scratch,
+                   long long cols) {
+  __shared__ int32_t mat_s[MAX_MAT_K * MAX_MAT_K];
+  for (int i = threadIdx.x; i < mat_k * mat_k; i += blockDim.x)
+    mat_s[i] = __ldg(mat + i);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int2* const bound = reinterpret_cast<int2*>(scratch + FB_COUNTER_WORDS) +
+                      (static_cast<long long>(blockIdx.x) * FB_WARPS + warp) *
+                          cols;
+  const int w = a.band_w;
+  for (;;) {
+    int b = 0;
+    if (lane == 0) b = atomicAdd(scratch, 1);
+    b = __shfl_sync(FULL, b, 0);
+    if (b >= a.nb) return;
+    const int plen = a.plens[b], tlen = a.tlens[b];
+    const Best best =
+        tlen > w ? fb_sweep<ATYPE, true>(a, b, mat_s, mat_k, bound, lane)
+                 : fb_sweep<ATYPE, false>(a, b, mat_s, mat_k, bound, lane);
+    if (lane == 0) {  // k5_kernel's output rules
+      int p_end, t_end;
+      if (ATYPE == GLOBAL) {
+        p_end = plen;
+        t_end = plen == 0 ? 0 : tlen;
+      } else {
+        p_end = best.r;
+        t_end = max(best.r + best.k - w, 0);
+      }
+      a.out[b] = best.h;
+      a.out[a.nb + b] = p_end;
+      a.out[2 * a.nb + b] = t_end;
+    }
+  }
+}
+
+// blocks of the tier's kernel an SM keeps resident
+cudaError_t fb_blocks_per_sm(int atype, int* per_sm) {
+  switch (atype) {
+    case GLOBAL:
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, k5_full_kernel<GLOBAL>, FB_WARPS * 32, 0);
+    case SEMI_GLOBAL:
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, k5_full_kernel<SEMI_GLOBAL>, FB_WARPS * 32, 0);
+    case LOCAL:
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          per_sm, k5_full_kernel<LOCAL>, FB_WARPS * 32, 0);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// the persistent grid: the blocks the card keeps resident, never more
+// than the batch fills
+cudaError_t fb_grid(int nb, int atype, int* blocks) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = fb_blocks_per_sm(atype, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *blocks = min(max(per_sm, 1) * sms, (nb + FB_WARPS - 1) / FB_WARPS);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -342,6 +620,68 @@ int k5_wavefront_score_matrix(const void* pats, const void* plens,
       a, atype, static_cast<int32_t*>(scratch),
       static_cast<const int32_t*>(mat), mat_k,
       static_cast<cudaStream_t>(stream)));
+}
+
+// int32 words of device scratch k5_full_score_matrix needs for this
+// call: the alignment counter and one boundary row (lp + band_w + 1
+// (H, F) pairs) for each warp of its persistent grid, so the size follows
+// the warps the card keeps in flight, not the batch.  Call it on the
+// launch's device; -1 on a CUDA error.
+long long k5_full_scratch_words(int nb, int lp, int band_w, int atype) {
+  int blocks = 0;
+  if (fb_grid(nb, atype, &blocks) != cudaSuccess) return -1;
+  return FB_COUNTER_WORDS +
+         2LL * blocks * FB_WARPS * fb_cols(lp, band_w);
+}
+
+// Warps of the full-band kernel an SM keeps resident; -1 on a CUDA
+// error.
+int k5_full_warps_per_sm(int atype) {
+  int per_sm = 0;
+  if (fb_blocks_per_sm(atype, &per_sm) != cudaSuccess) return -1;
+  return per_sm * FB_WARPS;
+}
+
+// k5_wavefront_score_matrix's function for band_w >= max(lp, lt), where
+// no band edge binds within the text: one warp an alignment sweeping the
+// text's columns.  The same arguments; scratch holds
+// k5_full_scratch_words(nb, lp, band_w, atype) int32 words.
+int k5_full_score_matrix(const void* pats, const void* plens,
+                         const void* texts, const void* tlens, int nb, int lp,
+                         int lt, int band_w, int atype, int eo, int ee,
+                         int fo, int fe, const void* mat, int mat_k,
+                         void* scratch, void* out, void* stream) {
+  if (mat_k < 1 || mat_k > MAX_MAT_K || band_w < max(lp, lt))
+    return cudaErrorInvalidValue;
+  if (nb == 0) return cudaSuccess;
+  const Args a = k5_args(pats, nullptr, plens, texts, tlens, nb, lp, lt,
+                         band_w, 0, 0, 0, 0, eo, ee, fo, fe, out);
+  int blocks = 0;
+  cudaError_t err = fb_grid(nb, atype, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto st = static_cast<cudaStream_t>(stream);
+  int32_t* const sc = static_cast<int32_t*>(scratch);
+  err = cudaMemsetAsync(sc, 0, sizeof(int32_t), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int32_t* m = static_cast<const int32_t*>(mat);
+  const long long cols = fb_cols(lp, band_w);
+  switch (atype) {
+    case GLOBAL:
+      k5_full_kernel<GLOBAL><<<blocks, FB_WARPS * 32, 0, st>>>(
+          a, m, mat_k, sc, cols);
+      break;
+    case SEMI_GLOBAL:
+      k5_full_kernel<SEMI_GLOBAL><<<blocks, FB_WARPS * 32, 0, st>>>(
+          a, m, mat_k, sc, cols);
+      break;
+    case LOCAL:
+      k5_full_kernel<LOCAL><<<blocks, FB_WARPS * 32, 0, st>>>(
+          a, m, mat_k, sc, cols);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // As k5_wavefront_score, plus dirs: (nb, lp + lt + 1, (band_w + 2) / 2)

@@ -19,11 +19,27 @@ count the launches.
 
 ``wavefront_score`` passes a substitution-matrix scheme
 (``alignment.blosum.MatrixScheme``, protein SW) to
-``wavefront_score_matrix``: the kernel's matrix mode
-(``k5_wavefront_score_matrix``, the table staged in shared memory), whose
-plain version is the twin's matrix gather (``_subst_scores``) and whose
-launches ``wavefront_score_matrix.launches`` counts.  No tool walks a
-protein traceback, so ``wavefront_dirs`` refuses a matrix scheme.
+``wavefront_score_matrix``: the kernel's matrix mode, whose plain version
+is the twin's matrix gather (``_subst_scores``).  It has two tiers, both
+in ``csrc/wavefront_gotoh.cu`` with the table staged in shared memory:
+
+- band_w >= max(Lp, Lt), every call of ``alignment.extra.
+  full_score_batch`` (``protein_sw``): the full-band tier
+  (``k5_full_score_matrix``).  No band edge binds inside the text there,
+  so the DP is the textbook full matrix: one warp an alignment, lane l
+  holding ``FULL_RPL`` pattern rows in registers and sweeping the text's
+  columns one step behind lane l - 1, the substitution from the table in
+  shared memory, no block barrier.  Patterns longer than 32 * FULL_RPL
+  rows take several passes through a boundary row in device scratch
+  (``_full_scratch``: one row a warp of the persistent grid, so its size
+  follows the warps in flight, not the batch).
+- any narrower band: the diagonal kernel's matrix mode
+  (``k5_wavefront_score_matrix``, one block an alignment).
+
+``wavefront_score_matrix.launches`` counts every matrix-mode launch,
+``wavefront_score_matrix.full_launches`` those of the full-band tier.
+The shape alone picks the tier.  No tool walks a protein traceback, so
+``wavefront_dirs`` refuses a matrix scheme.
 
 Flag layout (the port's own; only ``alignment/wavefront_walk.py`` reads
 it).  Cell (r, j) lies on diagonal d = r + j at slot q = r - rlo(d), with
@@ -56,6 +72,10 @@ def _max_penalty(scheme) -> int:
 
 #: flag bytes one call may allocate (``wavefront_dp.py:436``)
 MAX_DIRS_BYTES = 6 << 30
+
+#: pattern rows a lane of the full-band tier holds (``FB_RPL`` in
+#: ``csrc/wavefront_gotoh.cu``); a pass sweeps 32 * FULL_RPL rows
+FULL_RPL = 8
 
 
 def kmul(band_w: int) -> int:
@@ -125,10 +145,29 @@ def _scratch(lib, nb: int, band_w: int, dev) -> torch.Tensor:
                        dtype=torch.int32, device=dev)
 
 
+def _full_scratch(lib, nb: int, lp: int, band_w: int, atype,
+                  dev) -> torch.Tensor:
+    """The full-band tier's scratch: its alignment counter and a boundary
+    row for each warp of the persistent grid (the library sizes it)."""
+    with torch.cuda.device(dev):
+        words = lib.k5_full_scratch_words(nb, lp, band_w, atype.value)
+    if words < 0:
+        raise RuntimeError("k5_full_scratch_words: CUDA error sizing the "
+                           "full-band tier's grid")
+    return torch.empty(words, dtype=torch.int32, device=dev)
+
+
+def full_band(lp: int, lt: int, band_w: int) -> bool:
+    """Whether a matrix-mode call of this shape takes the full-band tier:
+    no band edge binds inside the text (band_w >= max(Lp, Lt))."""
+    return band_w >= max(lp, lt)
+
+
 def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
     pats, _, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens, None)
     tx = _launch.stage_texts(texts, pats.shape[0])
     nb, lp = pats.shape
+    lt = tx.shape[1]
     dev = pats.device
     # the table is the twin's own; the C entry bounds K (MAX_MAT_K there)
     mat = _matrix_table(scheme, dev)
@@ -136,12 +175,18 @@ def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
     if mat.dim() != 2 or mat.shape[1] != k:
         raise ValueError(f"substitution matrix {tuple(mat.shape)}: need "
                          "K x K")
-    scratch = _scratch(_build.library(), nb, band_w, dev)
+    lib = _build.library()
+    if full_band(lp, lt, band_w):
+        name = "k5_full_score_matrix"
+        scratch = _full_scratch(lib, nb, lp, band_w, atype, dev)
+    else:
+        name = "k5_wavefront_score_matrix"
+        scratch = _scratch(lib, nb, band_w, dev)
     _launch.call(
-        "k5_wavefront_score_matrix", dev, pats.data_ptr(), pl.data_ptr(),
-        tx.data_ptr(), tl.data_ptr(), nb, lp, tx.shape[1], band_w,
-        atype.value, *gap_penalties(scheme), mat.data_ptr(), k,
-        scratch.data_ptr(), out.data_ptr())
+        name, dev, pats.data_ptr(), pl.data_ptr(), tx.data_ptr(),
+        tl.data_ptr(), nb, lp, lt, band_w, atype.value,
+        *gap_penalties(scheme), mat.data_ptr(), k, scratch.data_ptr(),
+        out.data_ptr())
     return _launch.result(out)
 
 
@@ -202,7 +247,9 @@ def wavefront_score_matrix(patterns, plens, texts, tlens, *, scheme,
     ``scheme.matrix_np`` (a ``MatrixScheme``), table[clip(p), clip(t)]
     over symbols clipped to [0, K - 1], no quality term.  The plain
     version is the twin's matrix gather (``banded_score_batch(twin=True)``
-    with the same scheme)."""
+    with the same scheme).  On CUDA tensors band_w >= max(Lp, Lt) takes
+    the full-band tier, any narrower band the diagonal kernel (module
+    docstring)."""
     check_wavefront(patterns.shape[1], texts.shape[1], band_w, scheme)
     if _launch.on_cpu(patterns, plens, texts, tlens):
         return banded_score_batch(patterns, plens, texts, tlens, None,
@@ -211,6 +258,8 @@ def wavefront_score_matrix(patterns, plens, texts, tlens, *, scheme,
     res = _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype,
                             band_w)
     wavefront_score_matrix.launches += 1
+    wavefront_score_matrix.full_launches += full_band(
+        patterns.shape[1], texts.shape[1], band_w)
     return res
 
 
@@ -238,4 +287,5 @@ def wavefront_dirs(patterns, plens, texts, tlens, quals=None, *,
 
 wavefront_score.launches = 0
 wavefront_score_matrix.launches = 0
+wavefront_score_matrix.full_launches = 0
 wavefront_dirs.launches = 0

@@ -958,28 +958,41 @@ def _protein_pairs(seed, nb, lq, lt):
         sub = rng.random(m) < 0.3
         seg[sub] = rng.integers(0, 20, int(sub.sum()))
         texts[b, s:s + m] = seg
-    pats[1, 3], texts[2, 4], plens[3] = 20, 21, 0
+    pats[1, min(3, lq - 1)], texts[2, min(4, lt - 1)], plens[3] = 20, 21, 0
     return pats, plens, texts, tlens
 
 
-@pytest.mark.parametrize("lq,lt", [(60, 90), (120, 70), (2100, 4200)],
-                         ids=["smem", "smem-lq>lt", "scratch"])
+# the full-band tier's edges: a lane's rows (wavefront_dp.FULL_RPL), a
+# pass's 32 lanes, two passes and a ragged third, against texts of one
+# column, a few and many
+_RPL = 8  # wavefront_dp.FULL_RPL, checked in the test
+_FULL_EDGES = [(lq, lt) for lq in (1, 31, 32, 33, 32 * _RPL, 32 * _RPL + 1,
+                                   2 * 32 * _RPL + 5)
+               for lt in (1, 40, 700)]
+
+
+@pytest.mark.parametrize(
+    "lq,lt", [(60, 90), (120, 70), (2100, 4200)] + _FULL_EDGES,
+    ids=["smem", "smem-lq>lt", "scratch"]
+    + [f"lq{lq}-lt{lt}" for lq, lt in _FULL_EDGES])
 @pytest.mark.parametrize("atype", list(AlignmentType),
                          ids=[a.name.lower() for a in AlignmentType])
 def test_k5_matrix_matches_plain(cuda, atype, lq, lt):
     """K5's matrix mode at band_w = max(Lq, Lt), as full_score_batch
-    calls it, against the twin's matrix gather; band_w 4200 keeps its
-    state in device scratch (past 4 094)."""
+    calls it, against the twin's matrix gather: the full-band tier takes
+    every such call (2100 x 4200 in 9 passes of 256 rows)."""
     from nvbio_tpu_torch.alignment.blosum import MatrixScheme
     from nvbio_tpu_torch.alignment.extra import full_score_batch
     from nvbio_tpu_torch.ops import wavefront_dp
 
+    assert wavefront_dp.FULL_RPL == _RPL
     cpu = [torch.from_numpy(a) for a in _protein_pairs(lq + lt, 6, lq, lt)]
     kw = dict(scheme=MatrixScheme(gap_open=10, gap_extend=1), atype=atype)
     banded_dp.reset_launch_counts()
     got = full_score_batch(*[a.to(cuda) for a in cpu], **kw)
     torch.cuda.synchronize()
     assert wavefront_dp.wavefront_score_matrix.launches == 1
+    assert wavefront_dp.wavefront_score_matrix.full_launches == 1
     assert wavefront_dp.wavefront_score.launches == 0
     want = full_score_batch(*cpu, **kw)
     for k in want:
@@ -987,6 +1000,69 @@ def test_k5_matrix_matches_plain(cuda, atype, lq, lt):
     with pytest.raises(ValueError, match="no substitution matrix"):
         wavefront_dp.wavefront_dirs(*[a.to(cuda) for a in cpu],
                                     band_w=max(lq, lt), **kw)
+
+
+def _k5_matrix_on_card(cuda, cpu, scheme, atype, band_w):
+    """wavefront_score_matrix on the card = its plain version on the CPU;
+    returns (launches, full-band launches) of the card's call."""
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    kw = dict(scheme=scheme, atype=atype, band_w=band_w)
+    banded_dp.reset_launch_counts()
+    got = wavefront_dp.wavefront_score_matrix(*[a.to(cuda) for a in cpu],
+                                              **kw)
+    torch.cuda.synchronize()
+    counts = (wavefront_dp.wavefront_score_matrix.launches,
+              wavefront_dp.wavefront_score_matrix.full_launches)
+    want = wavefront_dp.wavefront_score_matrix(*cpu, **kw)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    return counts
+
+
+@pytest.mark.parametrize("kind", ["repeats", "clipped", "empty"])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_matrix_full_band_edge_cases(cuda, atype, kind):
+    """The full-band tier on tests/_k5_matrix_cases' pairs (ties, clipped
+    symbols, zero lengths), which tests/test_torch_protein.py holds the
+    plain version to the JAX twin on."""
+    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
+
+    import _k5_matrix_cases as k5_cases
+
+    cpu = [torch.from_numpy(a) for a in k5_cases.pairs(kind)]
+    band_w = max(k5_cases.LQ, k5_cases.LT)
+    assert _k5_matrix_on_card(cuda, cpu, MatrixScheme(), atype,
+                              band_w) == (1, 1)
+
+
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_matrix_small_table_and_banded_call(cuda, atype):
+    """A random K = 4 table (symbols clipped to 0..3) through the
+    full-band tier at 2 passes + 5 rows, tlens past Lt on some lanes (the
+    band's upper edge then binds); and a banded matrix call (band_w <
+    max(Lp, Lt)), which stays on the diagonal kernel."""
+    from nvbio_tpu_torch.alignment.blosum import MatrixScheme
+
+    rng = np.random.default_rng(41)
+    table = rng.integers(-5, 6, (4, 4))
+    scheme = MatrixScheme(matrix=tuple(tuple(int(v) for v in row)
+                                       for row in table), gap_open=3,
+                          gap_extend=1)
+    lq, lt, nb = 2 * 32 * _RPL + 5, 200, 12
+    pats = rng.integers(-2, 7, (nb, lq)).astype(np.int8)
+    texts = rng.integers(-2, 7, (nb, lt)).astype(np.int8)
+    texts[::2, 20:180] = pats[::2, 40:200]
+    plens = rng.integers(1, lq + 1, nb).astype(np.int32)
+    tlens = rng.integers(1, lt + 1, nb).astype(np.int32)
+    plens[0], tlens[1] = lq, lt
+    tlens[2], tlens[3] = lt + 30, 3 * lq  # past Lt; past band_w on lane 3
+    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens)]
+    assert _k5_matrix_on_card(cuda, cpu, scheme, atype, lq) == (1, 1)
+    short = [a[:, :60] if a.dim() == 2 else a.clamp(max=60) for a in cpu]
+    assert _k5_matrix_on_card(cuda, short, scheme, atype, 20) == (1, 0)
 
 
 def test_protein_sw_and_wavelet_search_on_cuda_equal_cpu(cuda, tmp_path):

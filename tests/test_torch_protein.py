@@ -27,6 +27,8 @@ from nvbio_tpu_torch.alignment.extra import (full_score_batch,
 from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
 from nvbio_tpu_torch.ops import wavefront_dp
 
+import _k5_matrix_cases as k5_cases
+
 FIELDS = ("score", "p_end", "t_end")
 
 
@@ -72,17 +74,26 @@ def _protein_batch(seed, n, lp, lt, planted=True):
 
 
 SHAPES = [(30, 50), (50, 30)]
+# planted batches of a shape, then _k5_matrix_cases' kinds (ties, clipped
+# symbols, zero lengths) in every alignment type
 CASES = [(AlignmentType.LOCAL, s) for s in SHAPES] + [
-    (AlignmentType.GLOBAL, (30, 50)), (AlignmentType.SEMI_GLOBAL, (50, 30))]
+    (AlignmentType.GLOBAL, (30, 50)), (AlignmentType.SEMI_GLOBAL, (50, 30))
+] + [(a, kind) for kind in k5_cases.KINDS for a in AlignmentType]
 
 
-@pytest.mark.parametrize("atype,shape", CASES, ids=[
-    f"{a.name.lower()}-{lp}x{lt}" for a, (lp, lt) in CASES])
-def test_matrix_full_score_equals_jax(atype, shape):
+@pytest.mark.parametrize("atype,case", CASES, ids=[
+    f"{a.name.lower()}-" + (c if isinstance(c, str) else f"{c[0]}x{c[1]}")
+    for a, c in CASES])
+def test_matrix_full_score_equals_jax(atype, case):
     """K5-matrix's plain version (the port's twin with a matrix scheme,
-    reached through full_score_batch on CPU tensors) = the JAX twin."""
-    lp, lt = shape
-    pats, plens, texts, tlens = _protein_batch(lp + lt, 16, lp, lt)
+    reached through full_score_batch on CPU tensors) = the JAX twin; the
+    same kinds of inputs hold the kernel's full-band tier to the plain
+    version in tests/test_torch_cuda.py."""
+    if isinstance(case, str):
+        pats, plens, texts, tlens = k5_cases.pairs(case)
+    else:
+        lp, lt = case
+        pats, plens, texts, tlens = _protein_batch(lp + lt, 16, lp, lt)
     scheme = MatrixScheme(gap_open=10, gap_extend=1)
     want = jax_full(jnp.asarray(pats), jnp.asarray(plens),
                     jnp.asarray(texts), jnp.asarray(tlens),
@@ -90,8 +101,14 @@ def test_matrix_full_score_equals_jax(atype, shape):
     got = full_score_batch(_t(pats), _t(plens), _t(texts), _t(tlens),
                            scheme=scheme, atype=atype)
     _equal(got, want)
-    if atype == AlignmentType.LOCAL:  # the planted homologs score high
+    if case in SHAPES and atype == AlignmentType.LOCAL:
+        # the planted homologs score high
         assert (got["score"][0::2].numpy() > 40).all()
+    if case == "repeats" and atype == AlignmentType.LOCAL:
+        # ties: full-length identical repeats score high
+        assert (got["score"][:2].numpy() > 40).all()
+    if case == "empty":
+        assert got["p_end"][0] == got["p_end"][2] == 0
 
 
 def test_matrix_directions_twin_equals_jax():
