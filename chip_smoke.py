@@ -20,8 +20,9 @@ failure:
 2. the build: nvcc compiles the kernels from nvbio_tpu_torch/ops/csrc
    (one process per source, started together); the registers, shared
    bytes and spills of every instantiation of the sub-warp group kernel
-   (K1-K3, K4 up to 128 cells) and of K5's matrix full-band tier from
-   ptxas, the latter with the warps an SM it keeps resident;
+   (K1-K3, K4 up to 128 cells), of K5's matrix full-band tier and of
+   K5's formula banded tier from ptxas, the two K5 tiers with the warps
+   an SM they keep resident;
 3. K1, K2, K3 against their plain PyTorch versions on the card, bit for
    bit, at the extension batch's shape (NB = 32767 windows, 128-row
    patterns, band_w = 15), for all three alignment types (K1 and K3 also
@@ -78,8 +79,13 @@ failure:
 9. K5 against its plain versions at sw_benchmark's wide shape (128 x
    4000 bp, band_w 2000): score-only for all three alignment types (N
    symbols, ragged and zero lengths, a GLOBAL goal outside the band),
-   with flags on 8 lanes (every flag byte), the device walk over the
-   kernel's flags against the host walk; times and GCUPS;
+   each call asserted to have taken the banded column-sweep tier (where
+   the package has it) and the diagonal score kernel, which takes
+   patterns past the tier's reach, held to the same plain result by its
+   C entry, with flags on 8 lanes (every flag byte, the diagonal
+   kernel), the device walk over the kernel's flags against the host
+   walk; times and GCUPS; both score kernels against the plain version
+   and timed at narrower bands and other shapes (K5_THRESHOLD_SHAPES);
 10. K6 against its plain version at 2^19 x 100 bp and 8192 x 1000 bp
    (32 words), GLOBAL and SEMI_GLOBAL; times and GCUPS;
 10b. K5's matrix mode at protein_sw's shapes (phase 24's seeded
@@ -91,7 +97,8 @@ failure:
    diagonal kernel against its plain version;
 11. sw_benchmark --device cuda --long at its defaults (the JAX tool's
    TPU sizes) with the counts reset just before: K1, K4, K5 and K6
-   launched; its JSON rows recorded;
+   launched, every K5 call (gotoh_wide's and wide_cigar's pass 1) on the
+   banded tier; its JSON rows recorded;
 12. K4 at the shapes sw_benchmark gives it, on the tool's own batches:
    score-only at 1024 x 10 000 bp, band_w 63, and with flags and walks
    on wide_cigar's pass-2 call (128 x 4000 bp, the certificate's band),
@@ -360,6 +367,8 @@ GROUP_TIERS = None
 #: set by phase_build (empty for a cached build or a package without the
 #: tier)
 K5_FULL_BUILD = []
+#: the same for the formula score's banded tier (k5_band_kernel)
+K5_BAND_BUILD = []
 
 
 def bound(ops, nbytes, per_lane=1):
@@ -457,6 +466,19 @@ def phase_build():
                 f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an "
                 "SM resident")
         K5_FULL_BUILD[:] = full
+        band = k5_full_ptxas(_build.build_info.get("ptxas_by_source", {})
+                             .get("wavefront_gotoh.cu", ""), "k5_band_kernel")
+        for t in band:
+            t["warps_per_sm"] = (lib.k5_band_warps_per_sm(t["atype"], WIDE_LP)
+                                 if t["max_warps"] == 16 else
+                                 lib.k5_band_warps_per_sm(t["atype"], 8192))
+            log(f"[build] K5 banded tier ({t['max_warps']}-warp blocks), "
+                f"{['GLOBAL', 'SEMI_GLOBAL', 'LOCAL'][t['atype']]}: "
+                f"{t.get('registers')} registers, {t.get('smem')} B static "
+                f"shared, spill stores {t.get('spill_stores')} B, loads "
+                f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an SM "
+                f"resident at Lp {WIDE_LP if t['max_warps'] == 16 else 8192}")
+        K5_BAND_BUILD[:] = band
     return secs, tiers
 
 
@@ -1220,8 +1242,8 @@ def wide_inputs(np, nb, lp, band_w, rng):
     plens = np.full(nb, lp, np.int32)
     tlens = np.full(nb, lt, np.int32)
     plens[0], tlens[1] = 0, 0
-    plens[2], tlens[2] = lp - 333, lt - 777
-    tlens[3] = lp - band_w - 500
+    plens[2], tlens[2] = max(lp - 333, 1), max(lt - 777, 1)
+    tlens[3] = max(lp - band_w - 500, 0)
     quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
     return pats, plens, texts, tlens, quals
 
@@ -1268,6 +1290,8 @@ def phase_k5(torch, np):
         def p5():
             return banded_score_batch(*args, twin=True, **kw)
 
+        sweep0 = getattr(wavefront_dp.wavefront_score, "sweep_launches",
+                         None)
         r, w = k5(), p5()
         torch.cuda.synchronize()
         err = max_abs_err(torch, [r[k] for k in keys], [w[k] for k in keys])
@@ -1275,13 +1299,24 @@ def phase_k5(torch, np):
         if err:
             fail(f"K5 differs from its plain version ({atype.name}): "
                  f"max_abs_err {err}")
+        if sweep0 is not None and (
+                wavefront_dp.wavefront_score.sweep_launches != sweep0 + 1):
+            fail(f"K5 {atype.name} at Lp {WIDE_LP}, band_w {WIDE_W} did "
+                 "not take the banded column-sweep tier")
+        if sweep0 is not None:
+            # the diagonal score kernel, which the tier's gate leaves
+            # patterns past BAND_MAX_LP, on the same inputs (its C entry,
+            # uncounted)
+            err = max(err, k5_diagonal_err(torch, wavefront_dp, args, kw, w))
         if n_ok < WIDE_NB // 2:
             fail(f"K5 {atype.name}: only {n_ok} of {WIDE_NB} lanes have a "
                  "path, too few for the comparison to mean much")
         worst = max(worst, err)
+        which = ("" if sweep0 is None else
+                 ", the banded tier and the diagonal kernel")
         log(f"[k5] {atype.name}: score-only over {WIDE_NB} lanes ({n_ok} "
             f"with a path) bit-identical to the plain version (Lp "
-            f"{WIDE_LP}, Lt {WIDE_LP + 2 * WIDE_W}, band_w {WIDE_W})")
+            f"{WIDE_LP}, Lt {WIDE_LP + 2 * WIDE_W}, band_w {WIDE_W}{which})")
         if atype != AlignmentType.SEMI_GLOBAL:  # sw_benchmark's type
             continue
         cells = band_cells(torch, plens, tlens, WIDE_W)
@@ -1351,7 +1386,81 @@ def phase_k5(torch, np):
             f"{dpms:.1f} ms; bound {dbms:.3f} ms ({dby})")
         del dd, ed, rd, wd
     out["K5"]["max_abs_err"] = out["K5_dirs"]["max_abs_err"] = worst
+    if hasattr(wavefront_dp, "band_tier"):
+        out["K5"]["threshold"] = k5_threshold(torch, np, wavefront_dp, rng)
     return out
+
+
+def k5_diagonal_err(torch, wavefront_dp, args, kw, want):
+    """max_abs_err of K5's diagonal score kernel (C entry
+    k5_wavefront_score, launched without the wrapper, so no count moves)
+    against the plain version's ``want`` on the same inputs; fails on a
+    difference or a moved count."""
+    keys = ("score", "p_end", "t_end")
+    fn = wavefront_dp.wavefront_score
+    before = (fn.launches, fn.sweep_launches)
+    got = wavefront_dp._launch_k5(*args, kw["scheme"], kw["atype"],
+                                  kw["band_w"], "k5_wavefront_score")
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [got[k] for k in keys], [want[k] for k in keys])
+    if err or (fn.launches, fn.sweep_launches) != before:
+        fail(f"K5's diagonal score kernel ({kw['atype'].name}, band_w "
+             f"{kw['band_w']}) against its plain version: max_abs_err "
+             f"{err}, counts {before} -> {(fn.launches, fn.sweep_launches)}")
+    return err
+
+
+#: k5_threshold's shapes: (NB, Lp, band_w of wide_inputs, band_w of the
+#: call): sw_benchmark's 128 x 4 000 at bands below its 2 000, another
+#: Lp, and many short alignments, the last at full_score_batch's band
+#: (max(Lp, Lt))
+K5_THRESHOLD_SHAPES = (
+    *((128, 4000, w, w) for w in (16, 64, 128, 256, 512)),
+    *((128, 1000, w, w) for w in (16, 64, 256)),
+    (4096, 150, 16, 16), (4096, 150, 64, 64), (4096, 150, 150, 450))
+
+
+def k5_threshold(torch, np, wavefront_dp, rng):
+    """Both K5 score kernels, the banded column sweep (C entry
+    k5_band_score) and the diagonal kernel (k5_wavefront_score), launched
+    without the wrapper on SEMI_GLOBAL wide_inputs batches at
+    K5_THRESHOLD_SHAPES: each equal to the plain version
+    (banded_score_batch(twin=True)) bit for bit, CUDA-event ms of each,
+    and which one the wrapper's gate (band_tier) picks."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+
+    keys = ("score", "p_end", "t_end")
+    res = {}
+    for nb, lp, w_in, band_w in K5_THRESHOLD_SHAPES:
+        args = [torch.from_numpy(a).to(DEV)
+                for a in wide_inputs(np, nb, lp, w_in, rng)]
+        scheme, atype = GotohScheme(), AlignmentType.SEMI_GLOBAL
+        want = banded_score_batch(*args, scheme=scheme, atype=atype,
+                                  band_w=band_w, twin=True)
+        ms = {}
+        for name, entry in (("band", "k5_band_score"),
+                            ("diagonal", "k5_wavefront_score")):
+            def k5():
+                return wavefront_dp._launch_k5(*args, scheme, atype, band_w,
+                                               entry)
+
+            got = k5()
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, [got[k] for k in keys],
+                              [want[k] for k in keys])
+            if err:
+                fail(f"K5's {name} score kernel at {nb} x {lp}, band_w "
+                     f"{band_w} differs from its plain version: "
+                     f"max_abs_err {err}")
+            ms[name] = cuda_ms(torch, k5, 5)
+        gate = "band" if wavefront_dp.band_tier(lp) else "diagonal"
+        res[f"{nb}x{lp}/{band_w}"] = dict(ms, gate=gate)
+        log(f"[k5] threshold, {nb} x {lp} at band_w {band_w}: banded tier "
+            f"{ms['band']:.4f} ms, diagonal kernel {ms['diagonal']:.4f} ms, "
+            f"both equal to the plain version; the gate takes the {gate} "
+            "kernel")
+    return res
 
 
 def phase_k6(torch, np):
@@ -1417,7 +1526,7 @@ def phase_sw_benchmark(torch):
     import contextlib
     import io
 
-    from nvbio_tpu_torch.ops import banded_dp
+    from nvbio_tpu_torch.ops import banded_dp, wavefront_dp
     from nvbio_tpu_torch.tools.sw_benchmark import main as swb
 
     buf = io.StringIO()
@@ -1428,17 +1537,22 @@ def phase_sw_benchmark(torch):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    sweep = wavefront_dp.wavefront_score.sweep_launches
     rows = json.loads(buf.getvalue().strip().splitlines()[-1])
     if rc != 0 or any(launches[k] < 1 for k in ("K1", "K4", "K5", "K6")):
         fail(f"sw_benchmark --long did not launch K1, K4, K5 and K6: "
              f"rc {rc}, launches {launches}")
+    if sweep != launches["K5"]:  # gotoh_wide's and wide_cigar's pass 1
+        fail(f"sw_benchmark --long: {launches['K5'] - sweep} of its "
+             f"{launches['K5']} K5 calls missed the banded tier")
     if {r["engine"] for r in rows} != {"cuda"}:
         fail(f"sw_benchmark rows not all on the kernels: {rows}")
     for r in rows:
         log(f"[sw_benchmark] {json.dumps(r)}")
     log(f"[sw_benchmark] --device cuda --long: {secs:.1f}s; launches "
-        f"{launches}")
-    return {"rows": rows, "launches": launches, "seconds": secs}
+        f"{launches}, {sweep} of K5's on the banded tier")
+    return {"rows": rows, "launches": launches, "sweep_launches": sweep,
+            "seconds": secs}
 
 
 def rescore(scheme, pats, texts, quals, out, b):
@@ -3761,9 +3875,10 @@ def protein_batch(torch, np, qs, ts):
     return full, tuple(a[idx] for a in full), max(pt.shape[1], tt.shape[1])
 
 
-def k5_full_ptxas(text):
+def k5_full_ptxas(text, kernel="k5_full_kernel"):
     """Registers, shared bytes and spills of each instantiation of the
-    full-band tier's kernel (k5_full_kernel) from nvcc's ptxas report of
+    full-band tier's kernel (k5_full_kernel), or of ``kernel``
+    (k5_band_kernel: with its ``max_warps``), from nvcc's ptxas report of
     wavefront_gotoh.cu."""
     import re
 
@@ -3771,9 +3886,11 @@ def k5_full_ptxas(text):
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            g = re.search(r"k5_full_kernelILi(\d)E", m.group(1))
+            g = re.search(kernel + r"ILi(\d)E(?:Li(\d+)E)?", m.group(1))
             cur = {"atype": int(g[1])} if g else None
             if cur:
+                if g[2]:
+                    cur["max_warps"] = int(g[2])
                 out.append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -4395,6 +4512,7 @@ def main():
     try:
         result["build_s"], result["group_tiers"] = phase_build()
         result["k5_full_build"] = K5_FULL_BUILD
+        result["k5_band_build"] = K5_BAND_BUILD
         kernel_phases(torch, np, result)
         result["sw_benchmark"] = phase_sw_benchmark(torch)
         result["tool_shapes"] = phase_tool_shapes(torch, np)
@@ -4465,6 +4583,10 @@ def main():
              "protein_sw run": result["protein"]["launches"]}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
+    # the kernel symbol each row times, in its source
+    symbols = {"K5": "k5_band_kernel", "K5_dirs": "k5_kernel",
+               "K5_matrix": "k5_full_kernel",
+               "K5_matrix_full": "k5_full_kernel"}
     # (name, source, replaces, the path whose run launches it)
     for name, src, replaces, path in (
             ("K1", "banded_gotoh.cu", "nvbio_tpu/ops/banded_dp.py:835",
@@ -4500,6 +4622,8 @@ def main():
         if n < 1:
             fail(f"the {path} never launched {name}: {paths[path]}")
         kernels.append({"name": name, "route": "cuda", "source": csrc + src,
+                        **({"symbol": symbols[name]} if name in symbols
+                           else {}),
                         "replaces": replaces, "launches": n,
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -51,6 +51,8 @@ _SIGNATURES = {
     # scheme..., out, stream
     "k1_banded_score": _SCORE,
     "k4_long_score": _SCORE,
+    # K5's formula score on the banded column-sweep tier (no scratch)
+    "k5_band_score": _SCORE,
     # pats, quals, plens, gwords, n_words, win_start, tlens, nb, lp,
     # band_w, atype, scheme..., out, stream
     "k3_banded_score_packed": _PACKED,
@@ -77,6 +79,7 @@ _SIZES = {
     # nb, lp, band_w, atype
     "k5_full_scratch_words": ([_I] * 4, ctypes.c_longlong),
     "k5_full_warps_per_sm": ([_I], ctypes.c_int),  # atype
+    "k5_band_warps_per_sm": ([_I, _I], ctypes.c_int),  # atype, lp
     "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
     "k7_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, band_w
 }

@@ -1,6 +1,10 @@
 // Anti-diagonal wide-band banded Gotoh DP for Hopper (sm_90a): K5.
 //
 //   k5_wavefront_score       score + sink, raw twin values
+//   k5_band_score            the same on the banded column-sweep tier,
+//                            for lp <= 32 * 256 (the wrapper takes it
+//                            there, at any band; below)
+//   k5_band_warps_per_sm     its resident warps
 //   k5_wavefront_score_matrix  the same with substitution scores from a
 //                            K x K table (protein SW: BLOSUM62)
 //   k5_full_score_matrix     the matrix mode's full-band tier, for
@@ -87,6 +91,34 @@
 // plen is not a multiple of 32 * FB_RPL, and the 31-step skew of each
 // pass.
 //
+// The formula score entry point has two tiers as well; the wrapper picks
+// one by shape.  Calls with Lp <= 8192, at any band (every K5 call of
+// sw_benchmark --long: 128 x 4000, band_w 2000), take k5_band_kernel;
+// wider patterns, and the flag entry point, k5_kernel.  The band tier
+// is fb_sweep's column sweep with the band's edges (bs_strip): one block
+// an alignment, warp p on the strip of pattern rows 256 p + 1 ..
+// 256 (p + 1), lane l on 8 of them in registers, one step behind lane
+// l - 1.  Each lane sweeps only its rows' band columns (from row r0's
+// entry column r0 - w to its last row + w), so out-of-band values, which
+// the 8 rows of a lane produce on the 7 columns where some of them are
+// outside the band, feed no in-band cell and no sink; rows enter the band
+// on successive columns, where E and Hhat restart from k5_kernel's
+// left_out values, and take NEG_INF from above at x == w.  The steps
+// where no lane meets an edge run a body without those masks (at band_w
+// 2000 ~85 % of a strip's ~4 290 steps).  E is kept as G = E + j * ee, so
+// that E and H take one DPX operation each.  Strip p + 1 reads strip p's
+// last row from a 512-column ring in shared memory while strip p writes
+// it: each boundary has a published and a consumed column count, checked
+// every 32 steps (the reader waits for 33 columns ahead, the writer for
+// the slot it overwrites), so the strips run as a pipeline with no block
+// barrier in the loop.  Sinks keep the twin's tie
+// order: SEMI_GLOBAL and GLOBAL track only row plen (in the last strip),
+// LOCAL every row's first maximum.  What bounds it: 7 int32 operations a
+// cell in the body, plus ~45 a step (shuffles, text load, ring access,
+// loop) shared by its 8 cells; the pipeline fill (strips start ~100 to
+// ~320 steps apart, so an SM holds fewer than its 16 warps for a while)
+// and the masked steps at each strip's ends, ~1.8 times a body step.
+//
 // What bounds the diagonal kernel on the H100: per cell about 30 int32
 // operations and 9 shared-memory accesses behind one barrier per
 // diagonal, with one block of up to 1024 threads per alignment; the
@@ -94,6 +126,8 @@
 // With flags, the (w + 1) / 2 bytes written per diagonal.
 
 #include <limits.h>
+
+#include <type_traits>
 
 #include "gotoh_common.cuh"
 
@@ -578,6 +612,372 @@ cudaError_t fb_grid(int nb, int atype, int* blocks) {
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// The formula score entry point's banded column-sweep tier (k5_band_score):
+// one block an alignment, warp p sweeping the text's columns over the
+// pattern rows of strip p (BS_ROWS rows, BS_RPL a lane), the strips
+// pipelined through boundary rings in shared memory.
+
+constexpr int BS_RPL = 8;
+constexpr int BS_ROWS = 32 * BS_RPL;
+// strips (warps) an alignment at most: Lp <= BS_MAX_WARPS * BS_ROWS
+constexpr int BS_MAX_WARPS = 32;
+// columns of the ring between two strips (a power of two); the reader
+// waits for 33 columns ahead and the writer for the slot it overwrites,
+// so any size above 64 is free of deadlock
+constexpr int BS_RING = 512;
+
+// one alignment's inputs and the constants of its cells
+struct BsCtx {
+  const int8_t* pat;
+  const uint8_t* qual;
+  const int8_t* text;
+  int lt, w, plen, tlen, R;
+  Scheme sc;
+};
+
+// (a wait of ~seconds means a fault in the protocol: trap, so that the
+// launch fails instead of hanging the card)
+__device__ __forceinline__ void bs_wait(const volatile int* c, int need) {
+  for (int n = 0; *c < need; ++n) {
+    if (n == (1 << 26)) __trap();
+    __nanosleep(32);
+  }
+  __threadfence_block();
+}
+
+__device__ __forceinline__ void bs_publish(volatile int* c, int v, bool me) {
+  __syncwarp();
+  __threadfence_block();
+  if (me) *c = v;
+}
+
+// One strip: rows base + 1 .. base + rows (base = strip * BS_ROWS) on one
+// warp.  Lane l holds rows r0 .. r0 + 7 (r0 = base + 8 l + 1) and works
+// column j = jbase + s - l at step s; it computes only the columns of its
+// rows' band, lo .. hi, so an out-of-band value (a row left of its entry
+// column or right of its last) feeds no in-band cell and no sink, and no
+// chain runs for more than 2 w + 8 columns.  Per row it keeps H and Hhat
+// of the previous column and G = E + j * ee, so that E and H cost one
+// DPX operation each: G(j) = max(Hhat(j-1) + j ee - (eo + ee), G(j-1)),
+// H = max(G - j ee, Hhat).  k5_kernel's band masks, x = j - r: at x == -w
+// (and j == 0) E restarts from left_out's EMASK and Hhat NEG_INF; at x == w
+// the vertical input is NEG_INF.  The steps where no lane meets a mask,
+// a window edge or column 0 (all but ~2 * 290 of ~2 w + 290 a strip) run
+// a body without them.  Lane 0 takes the row above the strip from row 0
+// (strip 0) or from ring ``in``, which strip - 1's lane 31 fills; this
+// strip's lane 31 fills ``out``.  The strips run concurrently, each on
+// its own warp, with cnt = {prod, cons} of each boundary: a writer
+// publishes the columns it has written every 32 steps and waits for the
+// slot it overwrites, a reader waits for the columns it will read and
+// publishes those it has read.
+// Sinks (SINK): LOCAL every row's first maximum (rows folded by better()),
+// SEMI_GLOBAL row plen's first maximum, GLOBAL row plen at the clipped
+// goal column (into *goal).
+template <int ATYPE, bool SINK>
+__device__ __forceinline__ void bs_strip(const BsCtx& c, int strip, int lane,
+                                         const int2* in, int2* out,
+                                         volatile int* cnt, Best& best,
+                                         int* goal) {
+  constexpr int rmask = BS_RING - 1;
+  const Scheme sc = c.sc;
+  const int w = c.w, R = c.R, tlen = c.tlen, lt = c.lt;
+  const int base = strip * BS_ROWS;
+  const int rows = min(R - base, BS_ROWS);
+  const bool more = base + BS_ROWS < R;
+  const int nl = (rows + BS_RPL - 1) / BS_RPL;  // lanes with a row
+  const int r0 = base + lane * BS_RPL + 1;
+  const bool has_rows = lane < nl;
+  const int lo = max(0, r0 - w);
+  const int hi = min(tlen, min(r0 + BS_RPL - 1, R) + w);
+  const int j0 = max(0, base + 1 - w);          // lane 0's first column
+  const int jmax = min(tlen, base + rows + w);  // the last lane's last
+  const int jbase = j0 - 1;  // lane 0's column at step 0, which only fetches
+  const int nsteps = jmax < j0 ? 0 : jmax - jbase + nl;
+  // the body: steps at which every lane with a row has all its rows in the
+  // band, past their entry column and column 0, short of the x == w edge
+  const int sb = max(base + (nl - 1) * BS_RPL + 1 + BS_RPL - w, 1) - jbase +
+                 nl - 1;
+  const int se = max(min(tlen, base + w) - jbase + 1, sb);
+  const int EMASK = NEG_INF - (sc.eo + sc.ee);
+  const int eoe = sc.eo + sc.ee, foe = sc.fo + sc.fe;
+  const int EENTRY = max(EMASK - sc.ee, NEG_INF - eoe);
+  const int FEDGE = max(NEG_INF - foe, NEG_INF - sc.fe);
+  volatile int* const in_prod = cnt + 2 * max(strip - 1, 0);  // strip > 0
+  volatile int* const in_cons = in_prod + 1;
+  volatile int* const out_prod = cnt + 2 * strip;  // more only
+  volatile int* const out_cons = out_prod + 1;
+  const int fin_in = min(tlen, base + w) + 1;  // strip - 1 writes below it
+
+  int P[BS_RPL], mis[BS_RPL], Hp[BS_RPL], Hh[BS_RPL], G[BS_RPL];
+#pragma unroll
+  for (int i = 0; i < BS_RPL; ++i) {
+    const int r = r0 + i;
+    int p = 0, mm = 0;
+    if (r <= R) {
+      p = __ldg(c.pat + r - 1);
+      const int q = min(static_cast<int>(__ldg(c.qual + r - 1)), 40);
+      mm = sc.mm_min + floor_div40((sc.mm_max - sc.mm_min) * q);
+    }
+    P[i] = p;
+    mis[i] = p >= 4 ? -sc.n_penalty : -mm;
+    Hp[i] = NEG_INF;
+    Hh[i] = NEG_INF;
+    G[i] = EMASK;
+  }
+  int bh[ATYPE == LOCAL ? BS_RPL : 1], bj[ATYPE == LOCAL ? BS_RPL : 1];
+#pragma unroll
+  for (int i = 0; i < (ATYPE == LOCAL ? BS_RPL : 1); ++i) {
+    bh[i] = 0;
+    bj[i] = 0;
+  }
+  int sbh = NEG_INF, sbj = 0;  // SEMI_GLOBAL: row plen's first maximum
+  const int ip = (c.plen - 1) & (BS_RPL - 1);     // row plen's slot
+  const int lsink = (c.plen - 1 - base) / BS_RPL;  // and lane
+  const int jgoal =
+      c.plen + min(max(tlen - c.plen + w, 0), 2 * w) - w;  // GLOBAL
+  int oh = NEG_INF, of = NEG_INF;  // the lane's last row's H and F
+  int up_prev = NEG_INF;  // the vertical input of the step before
+  int tcur;               // the text symbol of the step's column
+  {
+    const int j = jbase - lane;
+    tcur = (j >= 1 && j - 1 < lt) ? __ldg(c.text + j - 1) : PAD_SYMBOL;
+  }
+  // lane 0's row above at column jj
+  auto boundary = [&](int jj) -> int2 {
+    if (strip == 0)
+      return make_int2(jj < 0 ? NEG_INF
+                              : (ATYPE == GLOBAL && jj > 0 ? -sc.eo - sc.ee * jj
+                                                           : 0),
+                       NEG_INF);
+    return jj < 0 ? make_int2(NEG_INF, NEG_INF) : in[jj & rmask];
+  };
+  int2 bcur = make_int2(NEG_INF, NEG_INF);
+  // j * ee - (eo + ee) and -j * ee of the step's column, carried from step
+  // to step (opaque to the compiler, which would otherwise fold -j * ee
+  // into an IMAD and split H's DPX operation in two)
+  int cj = (jbase - 1 - lane) * sc.ee - eoe;
+  int mj = -(jbase - 1 - lane) * sc.ee;
+
+  auto step = [&](int s, auto masked_tag) {
+    constexpr bool MASKED = decltype(masked_tag)::value;
+    const int j = jbase + s - lane;
+    cj += sc.ee;
+    mj -= sc.ee;
+    asm volatile("" : "+r"(cj), "+r"(mj));
+    int uh = __shfl_up_sync(FULL, oh, 1);
+    int uf = __shfl_up_sync(FULL, of, 1);
+    if (lane == 0) {
+      uh = bcur.x;
+      uf = bcur.y;
+    }
+    int diag = up_prev;
+    up_prev = uh;
+    const int ts = tcur;
+    // 0 <= j < lt (lanes without a row can be left of column 0)
+    tcur = static_cast<unsigned>(j) < static_cast<unsigned>(lt)
+               ? __ldg(c.text + j)
+               : PAD_SYMBOL;
+    if (MASKED) {
+      if (strip == 0 || lane == 0) bcur = boundary(jbase + s + 1);
+    } else {  // column jbase + s + 1 >= 2; strip 0 has no ring (a block
+              // of one warp has no shared memory for it)
+      const int jj = jbase + s + 1;
+      if (strip > 0)
+        bcur = in[jj & rmask];  // every lane: one broadcast, no branch
+      else
+        bcur = make_int2(ATYPE == GLOBAL ? -sc.eo - sc.ee * jj : 0, NEG_INF);
+    }
+    if (MASKED && !(has_rows && j >= lo && j <= hi)) return;
+    const bool tn = ts >= 4;
+    const int mv = tn ? -sc.n_penalty : sc.match;
+    int xa = 0, xc = 0, gent = 0;
+    if (MASKED) {
+      xa = j - r0 + w;  // row i is at x == -w when xa == i
+      xc = j - r0 - w;  // and at x == w when xc == i
+      gent = EENTRY - mj;
+      if (j == 0) diag = NEG_INF;
+    }
+    int hs = NEG_INF;
+    bool hs_in = !MASKED;
+#pragma unroll
+    for (int i = 0; i < BS_RPL; ++i) {
+      int F = __viaddmax_s32(uh, -foe, uf - sc.fe);
+      if (MASKED && xc == i) F = FEDGE;
+      const int sub = (P[i] == ts || tn) ? mv : mis[i];
+      const int hh = ATYPE == LOCAL ? __viaddmax_s32_relu(diag, sub, F)
+                                    : __viaddmax_s32(diag, sub, F);
+      int g = __viaddmax_s32(Hh[i], cj, G[i]);
+      if (MASKED && (xa == i || j == 0)) g = gent;
+      const int H = __viaddmax_s32(g, mj, hh);  // LOCAL: hh >= 0 already
+      diag = Hp[i];
+      Hp[i] = H;
+      Hh[i] = hh;
+      G[i] = g;
+      if constexpr (SINK) {
+        const bool inb = !MASKED || (xa >= i && xc <= i);
+        if constexpr (ATYPE == LOCAL) {
+          if (inb && H > bh[i]) {
+            bh[i] = H;
+            bj[i] = j;
+          }
+        } else if (i == ip) {
+          hs = H;
+          hs_in = inb;
+        }
+      }
+      uh = H;
+      uf = F;
+    }
+    oh = uh;
+    of = uf;
+    if constexpr (SINK && ATYPE != LOCAL) {
+      if (lane == lsink) {
+        if (ATYPE == GLOBAL) {
+          if (j == jgoal) *goal = hs;
+        } else if (hs_in && hs > sbh) {
+          sbh = hs;
+          sbj = j;
+        }
+      }
+    }
+    if (more && lane == 31) out[j & rmask] = make_int2(oh, of);
+  };
+
+  for (int s = 0; s < nsteps;) {  // chunks of 32 steps
+    if (strip > 0) {
+      bs_publish(in_cons, jbase + s, lane == 0);
+      bs_wait(in_prod, min(jbase + s + 33, fin_in));
+    }
+    if (more) {
+      bs_publish(out_prod, jbase + s - 31, lane == 31);
+      bs_wait(out_cons, jbase + s - rmask);
+    }
+    if (s == 0 && lane == 0) bcur = boundary(jbase);
+    const int e = min(s + 32, nsteps);
+    if (s >= sb && e <= se) {
+      for (; s < e; ++s) step(s, std::false_type{});
+    } else {
+      for (; s < e; ++s) step(s, std::true_type{});
+    }
+  }
+  if (strip > 0) bs_publish(in_cons, INT_MAX, lane == 0);
+  if (more) bs_publish(out_prod, INT_MAX, lane == 31);
+  if constexpr (SINK) {
+    if constexpr (ATYPE == LOCAL) {
+#pragma unroll
+      for (int i = 0; i < BS_RPL; ++i) {
+        const int r = r0 + i;
+        const Best cand{bh[i], r, bj[i] - r + w};
+        if (has_rows && r <= R && better(cand, best)) best = cand;
+      }
+    } else if (ATYPE == SEMI_GLOBAL) {
+      const Best cand{sbh, c.plen, sbj - c.plen + w};
+      if (lane == lsink && sbh > NEG_INF && better(cand, best)) best = cand;
+    }
+  }
+}
+
+// One block an alignment, warp p on strip p, blockDim = 32 * ceil(Lp /
+// BS_ROWS) (MAXW warps at most), (warps - 1) rings of BS_RING int2 in
+// dynamic shared memory.  Warps past the alignment's strips idle to the
+// final reduction.
+template <int ATYPE, int MAXW>
+__global__ void __launch_bounds__(MAXW * 32) k5_band_kernel(Args a) {
+  extern __shared__ int2 bs_rings[];
+  __shared__ int cnt[2 * BS_MAX_WARPS];
+  __shared__ Best wbest[BS_MAX_WARPS];
+  __shared__ int goal;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int plen = a.plens[b];
+  const BsCtx c{a.pats + static_cast<int64_t>(b) * a.lp,
+                a.quals + static_cast<int64_t>(b) * a.lp,
+                a.texts + static_cast<int64_t>(b) * a.lt,
+                a.lt, a.band_w, plen, a.tlens[b], max(min(plen, a.lp), 0),
+                a.sc};
+  if (lane == 0) {  // boundary warp: nothing published, nothing read
+    cnt[2 * warp] = INT_MIN;
+    cnt[2 * warp + 1] = max(0, (warp + 1) * BS_ROWS + 1 - c.w) - 1;
+  }
+  if (threadIdx.x == 0) goal = NEG_INF;
+  __syncthreads();
+  Best best = ATYPE == LOCAL ? Best{0, 0, c.w} : Best{NEG_INF, plen, 0};
+  const int nstrips = (c.R + BS_ROWS - 1) / BS_ROWS;
+  if (warp < nstrips) {
+    const int2* in = bs_rings + max(warp - 1, 0) * BS_RING;  // not warp 0's
+    int2* out = bs_rings + warp * BS_RING;  // unused for the last strip
+    if (ATYPE == LOCAL || (warp == nstrips - 1 && c.plen == c.R))
+      bs_strip<ATYPE, true>(c, warp, lane, in, out, cnt, best, &goal);
+    else
+      bs_strip<ATYPE, false>(c, warp, lane, in, out, cnt, best, &goal);
+  }
+#pragma unroll
+  for (int delta = 16; delta > 0; delta >>= 1) {
+    const Best o = shfl_best(best, delta);
+    if (better(o, best)) best = o;
+  }
+  if (lane == 0) wbest[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < nw; ++i)
+      if (better(wbest[i], best)) best = wbest[i];
+    if (ATYPE == GLOBAL) {  // k5_kernel's output rules
+      a.out[b] = goal;
+      a.out[a.nb + b] = plen;
+      a.out[2 * a.nb + b] = plen == 0 ? 0 : c.tlen;
+    } else {
+      a.out[b] = best.h;
+      a.out[a.nb + b] = best.r;
+      a.out[2 * a.nb + b] = max(best.r + best.k - c.w, 0);
+    }
+  }
+}
+
+int bs_warps(int lp) { return (lp + BS_ROWS - 1) / BS_ROWS; }
+
+int bs_smem(int nw) { return (nw - 1) * BS_RING * sizeof(int2); }
+
+// the kernel for nw warps a block (<= 16: up to 128 registers a thread)
+// with its dynamic shared memory allowed; with per_sm, the blocks an SM
+// keeps resident instead of a launch
+template <int ATYPE, int MAXW>
+cudaError_t bs_launch_one(const Args& a, int nw, cudaStream_t st,
+                          int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      k5_band_kernel<ATYPE, MAXW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bs_smem(nw));
+  if (err != cudaSuccess) return err;
+  if (per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, k5_band_kernel<ATYPE, MAXW>, nw * 32, bs_smem(nw));
+  k5_band_kernel<ATYPE, MAXW><<<a.nb, nw * 32, bs_smem(nw), st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int ATYPE>
+cudaError_t bs_launch(const Args& a, int nw, cudaStream_t st,
+                      int* per_sm = nullptr) {
+  return nw <= 16
+             ? bs_launch_one<ATYPE, 16>(a, nw, st, per_sm)
+             : bs_launch_one<ATYPE, BS_MAX_WARPS>(a, nw, st, per_sm);
+}
+
+cudaError_t bs_dispatch(const Args& a, int atype, int nw, cudaStream_t st,
+                        int* per_sm = nullptr) {
+  switch (atype) {
+    case GLOBAL:
+      return bs_launch<GLOBAL>(a, nw, st, per_sm);
+    case SEMI_GLOBAL:
+      return bs_launch<SEMI_GLOBAL>(a, nw, st, per_sm);
+    case LOCAL:
+      return bs_launch<LOCAL>(a, nw, st, per_sm);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -682,6 +1082,35 @@ int k5_full_score_matrix(const void* pats, const void* plens,
       return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// k5_wavefront_score's function on the banded column-sweep tier (one
+// block an alignment, a warp a 256-row strip): the same arguments less the
+// scratch, lp <= 32 * 256.
+int k5_band_score(const void* pats, const void* quals, const void* plens,
+                  const void* texts, const void* tlens, int nb, int lp,
+                  int lt, int band_w, int atype, int match, int mm_min,
+                  int mm_max, int n_penalty, int eo, int ee, int fo, int fe,
+                  void* out, void* stream) {
+  if (lp < 1 || lp > BS_MAX_WARPS * BS_ROWS) return cudaErrorInvalidValue;
+  if (nb == 0) return cudaSuccess;
+  const Args a = k5_args(pats, quals, plens, texts, tlens, nb, lp, lt, band_w,
+                         match, mm_min, mm_max, n_penalty, eo, ee, fo, fe,
+                         out);
+  return static_cast<int>(bs_dispatch(a, atype, bs_warps(lp),
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// Warps of the banded tier's kernel an SM keeps resident at this Lp (its
+// block has ceil(lp / 256) warps); -1 on a CUDA error.
+int k5_band_warps_per_sm(int atype, int lp) {
+  if (lp < 1 || lp > BS_MAX_WARPS * BS_ROWS) return -1;
+  int per_sm = 0;
+  const Args a = {};
+  const int nw = bs_warps(lp);
+  return bs_dispatch(a, atype, nw, nullptr, &per_sm) == cudaSuccess
+             ? per_sm * nw
+             : -1;
 }
 
 // As k5_wavefront_score, plus dirs: (nb, lp + lt + 1, (band_w + 2) / 2)

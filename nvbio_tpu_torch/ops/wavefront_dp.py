@@ -3,10 +3,22 @@ flags.
 
 Port of ``nvbio_tpu/ops/wavefront_dp.py`` (``wavefront_score_pallas``
 ``:349``, ``wavefront_dirs_pallas`` ``:321``, both through
-``_wavefront_call`` ``:372``).  The kernel is ``csrc/wavefront_gotoh.cu``
-(built by ``_build.py`` at first use): one block per alignment, the
-anti-diagonal across its threads, every diagonal in a loop inside the
-block.
+``_wavefront_call`` ``:372``).  The kernels are in
+``csrc/wavefront_gotoh.cu`` (built by ``_build.py`` at first use).  The
+formula score entry point has two tiers; the shape alone picks one:
+
+- Lp <= BAND_MAX_LP (32 strips of 256 rows), at any band (every K5 call
+  of ``sw_benchmark --long``: its ``gotoh_wide`` rows and ``wide_cigar``'s
+  pass 1): the banded column sweep (``k5_band_score``).
+  One block an alignment, warp p on the 256 pattern rows of strip p,
+  lane l on 8 of them in registers, sweeping the text's columns of its
+  rows' band one step behind lane l - 1; strip p + 1 reads strip p's last
+  row from a ring in shared memory as it is written.
+  ``wavefront_score.sweep_launches`` counts these calls.
+- wider patterns, and every ``wavefront_dirs`` call: the diagonal
+  kernel (``k5_wavefront_score``, ``k5_wavefront_directions``): one block
+  per alignment, the anti-diagonal across its threads, every diagonal in
+  a loop inside the block.
 
 K5 returns raw twin values (``wavefront_dp.py:33-40``): its plain version
 is ``alignment/batched.py`` ``banded_score_batch(twin=True)``, and the
@@ -15,7 +27,7 @@ plain version of its flags is the twin's flags
 (``twin_flags_to_diagonals``).  The wrappers take the plain versions for
 tensors on the CPU, and only then; for CUDA tensors they launch the kernel
 or raise.  ``wavefront_score.launches`` and ``wavefront_dirs.launches``
-count the launches.
+count the launches (the former of both tiers).
 
 ``wavefront_score`` passes a substitution-matrix scheme
 (``alignment.blosum.MatrixScheme``, protein SW) to
@@ -76,6 +88,12 @@ MAX_DIRS_BYTES = 6 << 30
 #: pattern rows a lane of the full-band tier holds (``FB_RPL`` in
 #: ``csrc/wavefront_gotoh.cu``); a pass sweeps 32 * FULL_RPL rows
 FULL_RPL = 8
+
+#: the formula score entry point's banded tier (``k5_band_score``) takes
+#: patterns of at most 32 strips of 256 rows (a warp a strip, one block
+#: of at most 1 024 threads), at any band: it beat the diagonal kernel at
+#: every band measured, 16 to 2 000 (PERF.md, PR 18)
+BAND_MAX_LP = 32 * 256
 
 
 def kmul(band_w: int) -> int:
@@ -163,6 +181,12 @@ def full_band(lp: int, lt: int, band_w: int) -> bool:
     return band_w >= max(lp, lt)
 
 
+def band_tier(lp: int) -> bool:
+    """Whether a formula ``wavefront_score`` call with patterns of width
+    ``lp`` takes the banded column-sweep tier on CUDA tensors."""
+    return lp <= BAND_MAX_LP
+
+
 def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
     pats, _, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens, None)
     tx = _launch.stage_texts(texts, pats.shape[0])
@@ -191,35 +215,46 @@ def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
 
 
 def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
-               with_dirs):
+               kernel):
+    """Stage the inputs and launch one of K5's formula C entries by name:
+    ``k5_band_score`` (the banded column sweep, Lp <= BAND_MAX_LP),
+    ``k5_wavefront_score`` or ``k5_wavefront_directions`` (the diagonal
+    kernel; the latter returns (result, dirs)).  Counts nothing: the
+    public wrappers pick the entry and count their launches."""
     pats, qual, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens,
                                                    quals)
     tx = _launch.stage_texts(texts, pats.shape[0])
     nb, lp = pats.shape
     lt = tx.shape[1]
     dev = pats.device
-    scratch = _scratch(_build.library(), nb, band_w, dev)
-    args = (pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
+    head = (pats.data_ptr(), qual.data_ptr(), pl.data_ptr(), tx.data_ptr(),
             tl.data_ptr(), nb, lp, lt, band_w,
-            *_launch.scheme_args(scheme, atype), scratch.data_ptr(),
-            out.data_ptr())
-    if with_dirs:
+            *_launch.scheme_args(scheme, atype))
+    if kernel == "k5_band_score":
+        _launch.call(kernel, dev, *head, out.data_ptr())
+        return _launch.result(out)
+    scratch = _scratch(_build.library(), nb, band_w, dev)
+    args = (*head, scratch.data_ptr(), out.data_ptr())
+    if kernel == "k5_wavefront_directions":
         ndiag, db = flag_shape(lp, lt, band_w)
         if nb * ndiag * db > MAX_DIRS_BYTES:
             raise ValueError(
                 f"wavefront flags would need {nb * ndiag * db / 2**30:.1f} "
                 "GiB; walk fewer alignments per call")
         dirs = torch.empty((nb, ndiag, db), dtype=torch.uint8, device=dev)
-        _launch.call("k5_wavefront_directions", dev, *args,
-                     dirs.data_ptr())
+        _launch.call(kernel, dev, *args, dirs.data_ptr())
         return _launch.result(out), dirs
-    _launch.call("k5_wavefront_score", dev, *args)
+    if kernel != "k5_wavefront_score":
+        raise ValueError(f"no K5 formula entry {kernel!r}")
+    _launch.call(kernel, dev, *args)
     return _launch.result(out)
 
 
 def wavefront_score(patterns, plens, texts, tlens, quals=None, *,
                     scheme: GotohScheme, atype: AlignmentType, band_w: int):
     """K5 score-only: wide-band banded Gotoh score + sink, raw twin values.
+    On CUDA tensors ``band_tier(Lp)`` shapes take the banded column
+    sweep, wider patterns the diagonal kernel (module docstring).
 
     patterns (NB, Lp) symbols (0..3, N >= 4); texts (NB, Lt); plens,
     tlens (NB,); quals (NB, Lp) or None (= 40).  Returns dict of (NB,)
@@ -235,9 +270,12 @@ def wavefront_score(patterns, plens, texts, tlens, quals=None, *,
         return banded_score_batch(patterns, plens, texts, tlens, quals,
                                   scheme=scheme, atype=atype, band_w=band_w,
                                   twin=True)
+    sweep = band_tier(patterns.shape[1])
     res = _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype,
-                     band_w, with_dirs=False)
+                     band_w, "k5_band_score" if sweep else
+                     "k5_wavefront_score")
     wavefront_score.launches += 1
+    wavefront_score.sweep_launches += sweep
     return res
 
 
@@ -280,12 +318,13 @@ def wavefront_dirs(patterns, plens, texts, tlens, quals=None, *,
                                     scheme=scheme, atype=atype,
                                     band_w=band_w)
     res = _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype,
-                     band_w, with_dirs=True)
+                     band_w, "k5_wavefront_directions")
     wavefront_dirs.launches += 1
     return res
 
 
 wavefront_score.launches = 0
+wavefront_score.sweep_launches = 0
 wavefront_score_matrix.launches = 0
 wavefront_score_matrix.full_launches = 0
 wavefront_dirs.launches = 0

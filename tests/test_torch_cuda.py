@@ -4,8 +4,9 @@ at the mapper's extension shape (pad lanes, Lp 320, windows at the
 genome's end), K4 for long patterns (Lp 2016-2017, its group tiers and
 the block-per-alignment tiers above 128 cells) and for the wide bands
 (band_w 32, 63) that route() sends it from K1-K3-shaped calls, K5 (score
-and flags, shared-memory and scratch state), K6 (register and scratch
-words), K7 (register and scratch tiers), the two-pass wide-band CIGAR,
+and flags, shared-memory and scratch state; the formula score's banded
+column-sweep tier at every strip edge, and its routing), K6 (register and
+scratch words), K7 (register and scratch tiers), the two-pass wide-band CIGAR,
 sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
 map_reads (CUDA SAM = CPU SAM), -S *.bam (CUDA BAM = CPU BAM), and the
 alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
@@ -531,7 +532,8 @@ def _wavefront_inputs(seed, nb, lp, band_w):
 @pytest.mark.parametrize("atype", list(AlignmentType),
                          ids=[a.name.lower() for a in AlignmentType])
 def test_k5_matches_plain(cuda, atype, band_w):
-    """K5 score-only and with flags (every byte), and the device walk
+    """K5 score-only (the tier the gate picks, and the diagonal kernel
+    by its C entry) and with flags (every byte), and the device walk
     over the kernel's flags, against the plain versions; band_w 4200
     keeps its state in device scratch instead of shared memory."""
     from nvbio_tpu_torch.alignment.wavefront_walk import (
@@ -549,10 +551,14 @@ def test_k5_matches_plain(cuda, atype, band_w):
     torch.cuda.synchronize()
     assert wavefront_dp.wavefront_score.launches == 1
     assert wavefront_dp.wavefront_dirs.launches == 1
+    assert wavefront_dp.wavefront_score.sweep_launches == 1  # Lp 200
+    diag = wavefront_dp._launch_k5(*dev, kw["scheme"], atype, band_w,
+                                   "k5_wavefront_score")
     want = wavefront_dp.wavefront_score(*cpu, **kw)
     want_r, want_d = wavefront_dp.wavefront_dirs(*cpu, **kw)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), ("score", k)
+        assert torch.equal(diag[k].cpu(), want[k]), ("diagonal score", k)
         assert torch.equal(got_r[k].cpu(), want_r[k]), ("dirs", k)
     assert torch.equal(got_d.cpu(), want_d)
     walk_k = walk_wavefront_dirs_device(got_d, got_r["p_end"],
@@ -561,6 +567,101 @@ def test_k5_matches_plain(cuda, atype, band_w):
                                         want_r["t_end"], band_w=band_w)
     for g, w in zip(walk_k, walk_p):
         assert torch.equal(g.cpu(), w)
+
+
+def _k5_score_on_card(cuda, cpu, atype, band_w):
+    """wavefront_score on the card = its plain version on the CPU;
+    returns (launches, banded-tier launches) of the card's call."""
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    banded_dp.reset_launch_counts()
+    got = wavefront_dp.wavefront_score(*[a.to(cuda) for a in cpu], **kw)
+    torch.cuda.synchronize()
+    counts = (wavefront_dp.wavefront_score.launches,
+              wavefront_dp.wavefront_score.sweep_launches)
+    want = wavefront_dp.wavefront_score(*cpu, **kw)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    return counts
+
+
+@pytest.mark.parametrize("band_w", [256, 300, 2000])
+@pytest.mark.parametrize("lp", [1, 255, 256, 257, 513, 4000])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_band_tier_matches_plain(cuda, atype, lp, band_w):
+    """K5's banded column-sweep tier at every strip edge (a lane's 8
+    rows, a strip's 256, a second strip, sw_benchmark's 4 000 in 16),
+    at bands 256, 300 and sw_benchmark's 2 000 (narrower ones:
+    test_k5_score_kernels_narrow_bands): tests/_k5_band_cases' edge
+    lanes (ties, plen 256 / 257 / Lp, tlen below the last strip's band,
+    GLOBAL goals clipped to either edge, N, qualities 0-41), which
+    tests/test_torch_wavefront.py holds the plain version to the JAX
+    kernel on, and _wavefront_inputs' lanes (Lp >= 2)."""
+    import _k5_band_cases as k5_cases
+
+    lt = lp + 2 * band_w
+    lanes = [k5_cases.batch(lp, band_w, lt, seed=lp + band_w)]
+    if lp >= 2:
+        lanes.append(_wavefront_inputs(lp + band_w, 4, lp, band_w))
+    cpu = [torch.from_numpy(np.concatenate(a)) for a in zip(*lanes)]
+    assert _k5_score_on_card(cuda, cpu, atype, band_w) == (1, 1)
+
+
+@pytest.mark.parametrize("band_w", [0, 1, 8, 64, 128, 255])
+@pytest.mark.parametrize("lp", [255, 257, 1000])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_score_kernels_narrow_bands(cuda, atype, lp, band_w):
+    """Both K5 score kernels, the banded column sweep and the diagonal
+    kernel, launched by their C entries whatever the gate picks, at bands
+    below sw_benchmark's (a row's band narrower than a lane's 8 rows, a
+    strip's 256 rows, the band of one cell), on tests/_k5_band_cases'
+    edge lanes and _wavefront_inputs' lanes: each equal to the plain
+    version."""
+    import _k5_band_cases as k5_cases
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    lt = lp + 2 * band_w
+    cpu = [torch.from_numpy(np.concatenate(a)) for a in zip(
+        k5_cases.batch(lp, band_w, lt, seed=lp + band_w),
+        _wavefront_inputs(lp + band_w, 4, lp, band_w))]
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    want = wavefront_dp.wavefront_score(*cpu, **kw)
+    for entry in ("k5_band_score", "k5_wavefront_score"):
+        got = wavefront_dp._launch_k5(*[a.to(cuda) for a in cpu],
+                                      kw["scheme"], atype, band_w, entry)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (entry, k)
+
+
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_band_tier_routing(cuda, atype):
+    """Lp 8 192 (32 strips, the tier's widest block) takes the tier, and
+    so do narrow bands (255, 16); Lp 8 193 stays on the diagonal kernel,
+    and so does every wavefront_dirs call; all equal their plain
+    versions."""
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    assert wavefront_dp.BAND_MAX_LP == 8192
+    for lp, band_w, tier in ((8192, 256, 1), (8193, 256, 0), (600, 255, 1),
+                             (600, 16, 1)):
+        cpu = [torch.from_numpy(a) for a in
+               _wavefront_inputs(lp, 3, lp, band_w)]
+        assert _k5_score_on_card(cuda, cpu, atype, band_w) == (1, tier)
+    cpu = [torch.from_numpy(a) for a in _wavefront_inputs(3, 3, 300, 256)]
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=256)
+    banded_dp.reset_launch_counts()
+    got_r, got_d = wavefront_dp.wavefront_dirs(*[a.to(cuda) for a in cpu],
+                                               **kw)
+    assert wavefront_dp.wavefront_dirs.launches == 1
+    assert wavefront_dp.wavefront_score.sweep_launches == 0
+    want_r, want_d = wavefront_dp.wavefront_dirs(*cpu, **kw)
+    for k in want_r:
+        assert torch.equal(got_r[k].cpu(), want_r[k]), k
+    assert torch.equal(got_d.cpu(), want_d)
 
 
 @pytest.mark.parametrize("lp", [20, 100, 256, 257, 1000])

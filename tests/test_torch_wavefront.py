@@ -111,6 +111,21 @@ def test_wavefront_plain_matches_jax_wide_rebase(atype):
     _check_score((pats, plens, texts, tlens, None), atype, bw)
 
 
+@pytest.mark.parametrize("atype", ATYPES, ids=IDS)
+def test_wavefront_plain_matches_jax_band_sweep_edges(atype):
+    """tests/_k5_band_cases' lanes at band_w 260, Lp 520 (two strips of
+    the CUDA banded tier and one lane's 8 rows): ties from a periodic
+    pattern in a periodic text, plen 256, 257 and 520, tlen below the last
+    strip's band and GLOBAL goals clipped to either band edge, N symbols
+    and qualities 0-41.  The card holds the tier to the plain version on
+    the same lanes (tests/test_torch_cuda.py)."""
+    import _k5_band_cases as k5_cases
+
+    pats, plens, texts, tlens, quals = k5_cases.batch(520, 260, 800)
+    _check_score((pats, plens, texts, tlens, quals.astype(np.int32)), atype,
+                 260)
+
+
 def test_wavefront_plain_matches_jax_scheme():
     """A non-default scheme (tests/test_wavefront.py's), LOCAL and
     SEMI_GLOBAL."""
