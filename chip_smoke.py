@@ -20,7 +20,10 @@ failure:
 2. the build: nvcc compiles the kernels from nvbio_tpu_torch/ops/csrc
    (one process per source, started together); the registers, shared
    bytes and spills of every instantiation of the sub-warp group kernel
-   (K1-K3, K4 up to 128 cells), of K5's matrix full-band tier and of
+   (K1-K3, K4 up to 128 cells), of K7's group kernel on halfword pairs
+   (every tier; the compare form at the tiers up to 64 cells), of K5's
+   matrix full-band tier
+   and of
    K5's formula banded tier from ptxas, the two K5 tiers with the warps
    an SM they keep resident;
 3. K1, K2, K3 against their plain PyTorch versions on the card, bit for
@@ -109,12 +112,16 @@ failure:
    band ladder (tests/test_wide_cigar.py's forced-gap scheme), with the
    counts reset just before: K5 with flags launched, every lane has a
    CIGAR that re-scores to its score and holds its planted D run;
-14. the int16 opt-in: banded_score(compute_dtype="int16") at K1's row
-   shape (32 767 x 128, band_w 15) and at a wide band inside the int16
-   guard (8192 x 16, band_w 700: the scratch tier), all three types,
-   with the counts reset just before: only K7 launched, bit-identical to
-   its plain version; CUDA-event times of K7, of K1 at the same shape
-   (in turns) and of the plain version;
+14. the int16 opt-in: banded_score(compute_dtype="int16") at
+   K7_SHAPES: K1's row shape (32 767 x 128, band_w 15), a mid band (the
+   same at band_w 63, 127 cells), a wide band inside the int16 guard
+   (8192 x 16, band_w 700: 717 live cells) and Lp 128 at band_w 7 and
+   31, all three types, with the counts reset just before: only K7
+   launched, bit-identical to its plain version; CUDA-event times of K7,
+   of the int32 call's kernel at the same shape (K1, K4 past 64 cells;
+   in turns) and of the plain version, each shape's group tier (the C
+   entry k7_plan's) and warps an SM (the registers and spills of every
+   K7 tier are phase 2's);
 15. the golden paired-end dataset through map_reads -1/-2 --device cuda:
    SAM identical to tests/data/golden_pe.sam.gz (ignoring @PG), K2, K3
    and K4 (the rescue) launched;
@@ -276,8 +283,18 @@ N_LONG, LONG_LEN, LONG_CPU = 20_000, 2_000, 128
 WIDE_NB, WIDE_DIRS_NB, WIDE_LP, WIDE_W = 128, 8, 4_000, 2_000
 # Myers: sw_benchmark's 2^19 x 100 bp, and a 32-word pattern length
 MYERS_SHAPES = ((1 << 19, 100, 130), (8_192, 1_000, 1_060))
-# K7's wide shape: a 1401-cell band at Lp 16, inside the int16 guard
+# K7's shapes: the extension batch's row (band_w 15), a mid band (127
+# cells: 100 bp windows at the long-read path's band_w 63, inside the
+# int16 guard), a wide band at Lp 16 (1401 cells, 717 of them live), and
+# Lp 128 at band_w 7 and 31, where K7 is timed against the parent's
+# kernel too (the old register tier's 16- and 64-cell bands)
 K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W = 8_192, 16, 700
+K7_SHAPES = {"row": (NB, LP, BAND_W), "mid": (NB, LP, 63),
+             "wide": (K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W),
+             "w7": (NB, LP, 7), "w31": (NB, LP, 31)}
+#: the timed_rows name of each K7 shape
+K7_ROWS = {"row": "K7", "mid": "K7_mid", "wide": "K7_wide", "w7": "K7_w7",
+           "w31": "K7_w31"}
 # the paired-end run: pairs, the share with a rescue-only mate 2, the
 # pairs mapped on both devices
 N_PAIRS, PE_RESCUE_SHARE, PE_CPU = 50_000, 0.05, 128
@@ -369,6 +386,9 @@ GROUP_TIERS = None
 K5_FULL_BUILD = []
 #: the same for the formula score's banded tier (k5_band_kernel)
 K5_BAND_BUILD = []
+#: k7_ptxas of the build (empty for a cached build or a package without
+#: K7's group kernel)
+K7_BUILD = []
 
 
 def bound(ops, nbytes, per_lane=1):
@@ -479,7 +499,88 @@ def phase_build():
                 f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an SM "
                 f"resident at Lp {WIDE_LP if t['max_warps'] == 16 else 8192}")
         K5_BAND_BUILD[:] = band
+        K7_BUILD[:] = k7_ptxas(_build.build_info.get("ptxas_by_source", {})
+                               .get("banded_gotoh16.cu", ""))
+        for t in K7_BUILD:
+            log(f"[build] K7 tier G {t['G']} x CPT {t['CPT']}, "
+                f"{['GLOBAL', 'SEMI_GLOBAL', 'LOCAL'][t['atype']]}"
+                f"{'' if t['byte_table'] else ', compare form'}, "
+                f"{t['pinned_cells']} pinned cells a lane: "
+                f"{t.get('registers')} registers, {t.get('smem')} B shared, "
+                f"spill stores {t.get('spill_stores')} B, loads "
+                f"{t.get('spill_loads')} B")
     return secs, tiers
+
+
+def k7_ptxas(text):
+    """Registers, shared bytes and spills of each instantiation of K7's
+    group kernel (k7_group_kernel<G, CPT, ATYPE, LUT, PINC>) from nvcc's
+    ptxas report of banded_gotoh16.cu."""
+    import re
+
+    tiers, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            g = re.search(r"k7_group_kernelILi(\d+)ELi(\d+)ELi(\d)ELb([01])"
+                          r"ELi(\d+)E", m.group(1))
+            cur = None if not g else {
+                "G": int(g[1]), "CPT": int(g[2]), "atype": int(g[3]),
+                "byte_table": g[4] == "1", "pinned_cells": int(g[5])}
+            if cur:
+                tiers.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m[1]) if m else 0
+    return tiers
+
+
+def k7_occupancy(nb, lp, band_w, scheme):
+    """The instantiation a K7 call of this shape takes, as the C entry
+    k7_plan reports it (tier G x CPT over k7_live_range's live cells,
+    the group's first band cell, the pinned cells a lane, the
+    substitution form, the grid), its block (128 threads, 128 / G pairs
+    of alignments), and from the ptxas registers and shared bytes of
+    that SEMI_GLOBAL instantiation the blocks and warps an SM holds
+    (sm_blocks) and those this call's grid keeps resident.  None for a
+    package without the group kernel (the parent tree of a --turns run);
+    no ptxas figures for a cached build."""
+    import ctypes
+
+    from nvbio_tpu_torch.ops import _build, banded_dp
+
+    if not hasattr(banded_dp, "k7_live_range"):
+        return None
+    k_lo, n = banded_dp.k7_live_range(lp, band_w)
+    plan = (ctypes.c_int * 6)()
+    rc = _build.library().k7_plan(
+        nb, lp, band_w, k_lo, scheme.match, scheme.mismatch_min,
+        scheme.mismatch_max, scheme.n_penalty, plan)
+    if rc:
+        fail(f"k7_plan refused ({nb}, {lp}, band_w {band_w}): {rc}")
+    g, cpt, k_start, pinc, lut, grid = plan
+    out = {"G": g, "CPT": cpt, "live_cells": n, "k_lo": k_lo,
+           "k_start": k_start, "pinned_cells": pinc, "byte_table": bool(lut),
+           "grid": grid}
+    match = [t for t in K7_BUILD if (t["G"], t["CPT"], t["atype"],
+                                     t["pinned_cells"], t["byte_table"])
+             == (g, cpt, 1, pinc, bool(lut))]
+    if not match:
+        return out
+    t, warps = match[0], 128 // 32
+    blocks = sm_blocks(t["registers"], t["smem"])
+    resident = min(blocks, -(-grid // N_SMS))
+    return dict(out, registers=t["registers"], smem=t["smem"],
+                pairs_per_block=128 // g, blocks_per_sm=blocks,
+                warps_per_sm=blocks * warps,
+                warps_per_sm_achieved=resident * warps)
 
 
 def group_ptxas(by_source):
@@ -861,16 +962,23 @@ def group_tier(band_w, dirs):
     return (4 if band <= 32 else 8 if band <= 64 else 16), 8
 
 
+def sm_blocks(registers, smem, warps=4):
+    """128-thread blocks an SM holds by sm_90's occupancy rules (64 warps,
+    32 blocks, 64 K registers allocated 256 a warp, 228 KiB of shared
+    memory with 1 KiB reserved a block)."""
+    by_regs = 65536 // (warps * -(-registers * 32 // 256) * 256)
+    return min(32, 64 // warps, by_regs, 233_472 // (smem + 1024))
+
+
 def occupancy(kernel, band_w, nb, dirs):
     """The block shape of the group kernel a K1-K4 call of this band
     launches over ``nb`` alignments (count those with a pattern: a warp
     of zero-length lanes runs no row) (group_tier; 128 threads, 128 / G
-    alignments a block), the blocks an SM holds by the occupancy rules of sm_90 (64 warps, 32
-    blocks, 64 K registers allocated 256 a warp, 228 KiB of shared memory
-    with 1 KiB reserved a block) from the ptxas registers and shared
-    bytes of its SEMI_GLOBAL instantiation, and the warps an SM this
-    call's grid keeps resident.  None without a ptxas report of the
-    group kernel (a cached build, the parent tree of a --turns run)."""
+    alignments a block), the blocks an SM holds (sm_blocks) from the
+    ptxas registers and shared bytes of its SEMI_GLOBAL instantiation,
+    and the warps an SM this call's grid keeps resident.  None without a
+    ptxas report of the group kernel (a cached build, the parent tree of
+    a --turns run)."""
     tier = group_tier(band_w, dirs)
     src = "long_gotoh.cu" if kernel == "K4" else "banded_gotoh.cu"
     match = [t for t in GROUP_TIERS or () if tier and t["source"] == src
@@ -880,8 +988,7 @@ def occupancy(kernel, band_w, nb, dirs):
     if not match:
         return None
     t, warps = match[0], 128 // 32
-    by_regs = 65536 // (warps * -(-t["registers"] * 32 // 256) * 256)
-    blocks = min(32, 64 // warps, by_regs, 233_472 // (t["smem"] + 1024))
+    blocks = sm_blocks(t["registers"], t["smem"])
     per_block = 128 // tier[0]
     grid = -(-nb // per_block)
     resident = min(blocks, -(-grid // N_SMS))
@@ -1127,10 +1234,15 @@ def phase_bench_k1(torch, np):
     return out
 
 
-def phase_k7(torch, np):
-    """The int16 opt-in: banded_score(compute_dtype="int16") at K1's row
-    shape and at a wide band inside the guard, all three types, against
-    K7's plain version; K7 and K1 timed in turns at the row shape."""
+def phase_k7(torch, np, only=None):
+    """The int16 opt-in: banded_score(compute_dtype="int16") at
+    K7_SHAPES (the row, mid and wide shapes and Lp 128 at band_w 7 and
+    31), all three types, with the counts reset just before: only K7
+    launched, each call against K7's plain version; each shape timed in
+    SEMI_GLOBAL against the int32 call's kernel (K1, or K4 past 64 cells)
+    in turns, with its tier and the warps an SM it keeps resident.
+    ``only``: the timed_rows names whose shapes to time (all by
+    default)."""
     from nvbio_tpu_torch.alignment.batched import banded_score_batch16
     from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
     from nvbio_tpu_torch.ops import banded_dp
@@ -1138,8 +1250,8 @@ def phase_k7(torch, np):
     dev = torch.device(DEV)
     rng = np.random.default_rng(SEED + 9)
     genome = rng.integers(0, 4, 4_000_000).astype(np.int8)
-    shapes = {"row": (NB, LP, BAND_W),
-              "wide": (K7_WIDE_NB, K7_WIDE_LP, K7_WIDE_W)}
+    shapes = {name: sh for name, sh in K7_SHAPES.items()
+              if only is None or K7_ROWS[name] in only}
     inputs = {name: [torch.from_numpy(a).to(dev) for a in dp_inputs(
         np, nb, lp, w, genome, rng)] for name, (nb, lp, w) in shapes.items()}
 
@@ -1190,34 +1302,41 @@ def phase_k7(torch, np):
         def k7():
             return banded_dp.banded_score(*args, compute_dtype="int16", **kw)
 
-        def k1():
+        def k32():
             return banded_dp.banded_score(*args, **kw)
 
         def p7():
             return banded_score_batch16(*args, **kw)
 
         # K7 and the int32 call's kernel (K1; K4 past 64 cells) in turns
-        k32 = banded_dp.route(lp, w, False)
-        t7a, t1a = cuda_ms(torch, k7, 10), cuda_ms(torch, k1, 10)
-        t1b, t7b = cuda_ms(torch, k1, 10), cuda_ms(torch, k7, 10)
-        ms, k1_ms = (t7a + t7b) / 2, (t1a + t1b) / 2
+        k32_name = banded_dp.route(lp, w, False)
+        t7a, t1a = cuda_ms(torch, k7, 10), cuda_ms(torch, k32, 10)
+        t1b, t7b = cuda_ms(torch, k32, 10), cuda_ms(torch, k7, 10)
+        ms, k32_ms = (t7a + t7b) / 2, (t1a + t1b) / 2
         pms = cuda_ms(torch, p7, 2)
         bms, by, yard = gotoh_bound(
             cells, dp_bytes(*args, out_bytes=12 * nb), per_lane=2)
-        out[name] = {"ms": ms, "ms_turns": [t7a, t7b], "int32_kernel": k32,
-                     "int32_ms": k1_ms, "int32_ms_turns": [t1a, t1b],
-                     "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                     "yard_bound_ms": yard, "cells": cells,
-                     "gcups": cells / ms / 1e6,
-                     "int32_gcups": cells / k1_ms / 1e6}
+        occ = k7_occupancy(nb, lp, w, kw["scheme"])
+        out[name] = {"ms": ms, "ms_turns": [t7a, t7b],
+                     "int32_kernel": k32_name, "int32_ms": k32_ms,
+                     "int32_ms_turns": [t1a, t1b], "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by, "yard_bound_ms": yard,
+                     "cells": cells, "gcups": cells / ms / 1e6,
+                     "int32_gcups": cells / k32_ms / 1e6, "occupancy": occ}
+        tier = (f"; tier {occ['G']} x {occ['CPT']} over {occ['live_cells']} "
+                f"live cells from k {occ['k_lo']}"
+                + (f", {occ['registers']} registers, "
+                   f"{occ['warps_per_sm_achieved']} warps an SM"
+                   if "registers" in occ else "") if occ else "")
         log(f"[k7] SEMI_GLOBAL {name} NB={nb} Lp={lp} band_w={w}: K7 "
-            f"{t7a:.3f} / {t7b:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), "
-            f"{k32} {t1a:.3f} / {t1b:.3f} ms ({cells / k1_ms / 1e6:.1f} "
-            f"GCUPS), plain {pms:.1f} ms; bound {bms:.3f} ms ({by}), share "
-            f"{bms / ms:.3f} (yardstick {yard / ms:.3f})")
-    row = out["row"]
-    return dict(out, ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            f"{t7a:.4f} / {t7b:.4f} ms ({cells / ms / 1e6:.1f} GCUPS), "
+            f"{k32_name} {t1a:.4f} / {t1b:.4f} ms ("
+            f"{cells / k32_ms / 1e6:.1f} GCUPS), plain {pms:.1f} ms; bound "
+            f"{bms:.4f} ms ({by}), share {bms / ms:.3f} (yardstick "
+            f"{yard / ms:.3f}){tier}")
+    first = out[next(iter(shapes))]
+    return dict(out, ms=first["ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"],
                 max_abs_err=worst)
 
 
@@ -4374,8 +4493,8 @@ def kernel_phases(torch, np, result, only=None):
     result["bench_k1"] = (phase_bench_k1(torch, np)
                           if run("K1_bench", "K1_w31") else {})
     torch.cuda.empty_cache()
-    if run("K7", "K7_wide"):
-        k["K7"] = phase_k7(torch, np)
+    if run(*K7_ROWS.values()):
+        k["K7"] = phase_k7(torch, np, only)
     torch.cuda.empty_cache()
     result["rows"] = timed_rows(result)
 
@@ -4399,7 +4518,8 @@ def timed_rows(result):
         rows["K6_32w"] = k["K6"]["shapes"][
             f"{MYERS_SHAPES[1][0]}x{MYERS_SHAPES[1][1]}"]
     if "K7" in k:
-        rows["K7"], rows["K7_wide"] = k["K7"]["row"], k["K7"]["wide"]
+        rows.update({K7_ROWS[n]: k["K7"][n] for n in K7_SHAPES
+                     if n in k["K7"]})
     occ = {"K1": occupancy("K1", BAND_W, NB, False),
            "K2": occupancy("K2", BAND_W, NB, True),
            "K3": occupancy("K3", BAND_W, NB, False),
@@ -4410,6 +4530,8 @@ def timed_rows(result):
     occ.update({n: r["occupancy"] for n, r in ps.items()})
     occ.update({n: k[n]["occupancy"] for n in ("K5_matrix", "K5_matrix_full")
                 if n in k})
+    occ.update({K7_ROWS[n]: k["K7"][n]["occupancy"] for n in K7_SHAPES
+                if "K7" in k and n in k["K7"]})
     out = {}
     for name, r in rows.items():
         o = out[name] = {"ms": r["ms"], "bound_ms": r["bound_ms"],
@@ -4421,7 +4543,8 @@ def timed_rows(result):
         issued = (f", as issued {o['launch_ms']:.4f} ms"
                   if o["launch_ms"] else "")
         warps = (f", {o['occupancy']['warps_per_sm_achieved']} warps an SM"
-                 if o["occupancy"] else "")
+                 if (o["occupancy"] or {}).get("warps_per_sm_achieved")
+                 else "")
         log(f"[rows] {name}: {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms"
             f", share {o['bound_ms'] / o['ms']:.3f}{yard}{issued}{warps}")
     return out
@@ -4585,6 +4708,7 @@ def main():
     kernels = []
     # the kernel symbol each row times, in its source
     symbols = {"K5": "k5_band_kernel", "K5_dirs": "k5_kernel",
+               "K7": "k7_group_kernel",
                "K5_matrix": "k5_full_kernel",
                "K5_matrix_full": "k5_full_kernel"}
     # (name, source, replaces, the path whose run launches it)

@@ -253,6 +253,25 @@ def band_pad(band: int) -> int:
     return max(8, (band + 7) // 8 * 8)
 
 
+def band16_rows(plens, tlens, lp: int, band_w: int):
+    """The rows K7's plain version runs and the band cells valid in
+    each: ``(i0, valid)`` with ``valid`` (NB, band_pad(2w + 1)) true
+    where cell k of row i0 + 1 holds text column ``j = i0 + 1 + k - w``
+    in ``[0, tlen]``.  Rows stop at Lp8 and at the longest pattern
+    (the rows past every pattern's end record nothing)."""
+    band = 2 * band_w + 1
+    lp8 = (lp + 7) // 8 * 8
+    tlen = tlens.to(torch.int32).to(torch.int16)[:, None]
+    krange = torch.arange(band_pad(band), dtype=torch.int16,
+                          device=tlens.device)[None, :]
+    in_band = krange < band
+    plen = plens.to(torch.int32).to(torch.int16)
+    n_rows = min(lp8, int(plen.max()) if len(plen) else 0)
+    for i0 in range(n_rows):
+        j = krange + (i0 + 1 - band_w)
+        yield i0, (j >= 0) & (j <= tlen) & in_band
+
+
 def banded_score_batch16(patterns, plens, texts, tlens, quals=None, *,
                          scheme: GotohScheme, atype: AlignmentType,
                          band_w: int):
@@ -314,11 +333,7 @@ def banded_score_batch16(patterns, plens, texts, tlens, quals=None, *,
     snapH = torch.full((nb, BP), 0 if local else NEG16, dtype=i16,
                        device=dev)
     snapR = torch.zeros((nb, BP), dtype=i16, device=dev)
-    # rows past every pattern's end record nothing
-    n_rows = min(lp8, int(plen.max()) if nb else 0)
-    for i0 in range(n_rows):
-        j = krange + (i0 + 1 - band_w)
-        valid = (j >= 0) & (j <= tlen) & in_band
+    for i0, valid in band16_rows(plens32, tlens32, lp, band_w):
         q = quals[:, i0:i0 + 1]
         mm = (scheme.mismatch_min + ((scheme.mismatch_max
                                       - scheme.mismatch_min)

@@ -70,10 +70,11 @@ _SIGNATURES = {
     "k5_full_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
     # pats, plens, texts, tlens, nb, lp, lt, global, scratch, out, stream
     "k6_myers": [_P] * 4 + [_I] * 4 + [_P] * 3,
-    # as k1_banded_score, plus the scratch before the stream
-    "k7_banded_score16": _SCORE[:-1] + [_P, _P],
+    # pats, quals, plens, texts, tlens, nb, lp, lt, band_w, k_lo, atype,
+    # scheme..., out, stream
+    "k7_banded_score16": _SCORE[:9] + [_I] + _SCORE[9:],
 }
-#: entry points that return a size, not a cudaError_t
+#: entry points called directly, with no stream: sizes, warps, K7's plan
 _SIZES = {
     "k5_state_words": ([_I], ctypes.c_int),  # band_w
     # nb, lp, band_w, atype
@@ -81,7 +82,9 @@ _SIZES = {
     "k5_full_warps_per_sm": ([_I], ctypes.c_int),  # atype
     "k5_band_warps_per_sm": ([_I, _I], ctypes.c_int),  # atype, lp
     "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
-    "k7_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, band_w
+    # nb, lp, band_w, k_lo, match, mm_min, mm_max, n_penalty, plan (6
+    # ints): a cudaError_t
+    "k7_plan": ([_I] * 8 + [_P], ctypes.c_int),
 }
 
 

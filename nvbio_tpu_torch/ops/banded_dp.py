@@ -20,9 +20,11 @@ share it).
 K7, ``banded_score16`` in ``csrc/banded_gotoh16.cu``, is K1 with int16
 DP state and its own output contract (replaces ``banded_score_pallas``
 with ``compute_dtype="int16"``, ``_make_kernel_masked``
-``banded_dp.py:117``).  ``banded_score(compute_dtype="int16")`` takes it
-when the reference's guard (``int16_ok``) admits the shape, and K1
-otherwise, as the JAX package does.
+``banded_dp.py:117``): the group kernel on halfword pairs (a group of
+lanes a pair of alignments), over the band cells ``k7_live_range``
+gives.  ``banded_score(compute_dtype="int16")`` takes it when the
+reference's guard (``int16_ok``) admits the shape, and K1 otherwise, as
+the JAX package does.
 
 ``route()`` picks the kernel for a call's shape: patterns longer than
 LONG_THRESHOLD go to K4 (``long_dp.py``, ``csrc/long_gotoh.cu``), as in
@@ -140,7 +142,9 @@ def route(lp: int, band_w: int, with_dirs: bool, packed: bool = False,
     """The kernel a call of this shape launches on a CUDA device: K4 for
     patterns longer than LONG_THRESHOLD (the JAX package's dispatch,
     whatever the compute type); K7 for a ``compute_dtype="int16"`` call
-    whose shape and ``scheme`` ``int16_ok`` admits, at any band; K4 for
+    whose shape and ``scheme`` ``int16_ok`` admits, at any band (on CUDA
+    K7 refuses a scheme with a negative penalty or mismatch_min >
+    mismatch_max: ``banded_score16``); K4 for
     bands wider than K1-K3's widest tier (MAX_BAND cells);
     otherwise K2 with flags, K3 over packed windows, K1."""
     if lp > LONG_THRESHOLD:
@@ -152,12 +156,30 @@ def route(lp: int, band_w: int, with_dirs: bool, packed: bool = False,
     return "K2" if with_dirs else ("K3" if packed else "K1")
 
 
+def k7_live_range(lp: int, band_w: int) -> tuple[int, int]:
+    """The band cells K7 computes, ``(k_lo, n)``: cells ``k_lo`` to
+    ``k_lo + n - 1 = 2 * band_w``.  Cell k of row i (1-based) holds text
+    column ``j = i + k - band_w``, valid only for ``j >= 0``, and rows run
+    to Lp8, so no cell below ``band_w - Lp8`` is ever valid; the right
+    edge stays at 2w, since validity reads tlen, which may exceed Lt.
+    With no rows (Lp8 = 0) no cell is computed, and the range is one
+    cell."""
+    lp8 = (lp + 7) // 8 * 8
+    k_lo = 2 * band_w if lp8 == 0 else max(0, band_w - lp8)
+    return k_lo, 2 * band_w + 1 - k_lo
+
+
 def banded_score16(patterns, plens, texts, tlens, quals=None, *,
                    scheme: GotohScheme, atype: AlignmentType, band_w: int):
     """K7: the int16 masked banded Gotoh, score + sink over symbol
     windows, for shapes ``int16_ok`` admits (raises ValueError on
     others).  Inputs and outputs as ``banded_score``; the outputs follow
-    K7's own contract (``alignment.batched.banded_score_batch16``)."""
+    K7's own contract (``alignment.batched.banded_score_batch16``).  On
+    CUDA the scheme must keep the convention of ``alignment/types.py``,
+    penalties >= 0 and ``mismatch_min <= mismatch_max``, which the
+    kernel's headroom argument and ``int16_ok``'s bound need; it raises
+    ValueError on other schemes, which the plain version on the CPU
+    still computes."""
     if not int16_ok(patterns.shape[1], band_w, scheme):
         raise ValueError(
             f"Lp={patterns.shape[1]}, band_w={band_w}: outside the int16 "
@@ -166,19 +188,21 @@ def banded_score16(patterns, plens, texts, tlens, quals=None, *,
     if _on_cpu(patterns, plens, texts, tlens, quals):
         return banded_score_batch16(patterns, plens, texts, tlens, quals,
                                     scheme=scheme, atype=atype, band_w=band_w)
+    if (min(scheme.mismatch_min, scheme.mismatch_max, scheme.n_penalty,
+            *gap_penalties(scheme)) < 0
+            or scheme.mismatch_min > scheme.mismatch_max):
+        raise ValueError(f"{scheme}: K7 takes penalties >= 0 and "
+                         "mismatch_min <= mismatch_max (the scheme "
+                         "convention of alignment/types.py)")
     pats, qual, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens,
                                                    quals)
     tx = _launch.stage_texts(texts, pats.shape[0])
-    nb = pats.shape[0]
-    lib = _build.library()
-    words = lib.k7_scratch_words(nb, band_w)
-    scratch = (torch.empty(words, dtype=torch.int32, device=pats.device)
-               if words else None)
+    k_lo, _ = k7_live_range(pats.shape[1], band_w)
     _launch.call(
         "k7_banded_score16", pats.device, pats.data_ptr(), qual.data_ptr(),
-        pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), nb, pats.shape[1],
-        tx.shape[1], band_w, *_launch.scheme_args(scheme, atype),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr())
+        pl.data_ptr(), tx.data_ptr(), tl.data_ptr(), pats.shape[0],
+        pats.shape[1], tx.shape[1], band_w, k_lo,
+        *_launch.scheme_args(scheme, atype), out.data_ptr())
     banded_score16.launches += 1
     return _launch.result(out)
 
@@ -194,7 +218,9 @@ def banded_score(patterns, plens, texts, tlens, quals=None, *,
     rows go to K4 (``long_dp.banded_score_long``), and so do wide bands
     on CUDA.  ``compute_dtype`` has the JAX package's meaning: "auto"
     and "int32" are K1; "int16" is K7 (``banded_score16``) where
-    ``int16_ok`` admits the shape, K1 elsewhere."""
+    ``int16_ok`` admits the shape, K1 elsewhere.  On CUDA, K7 raises
+    ValueError for a scheme with a negative penalty or mismatch_min >
+    mismatch_max."""
     if compute_dtype not in ("auto", "int32", "int16"):
         raise ValueError(f"compute_dtype {compute_dtype!r}: auto, int32 or "
                          "int16")

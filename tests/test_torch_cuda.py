@@ -6,7 +6,8 @@ the block-per-alignment tiers above 128 cells) and for the wide bands
 (band_w 32, 63) that route() sends it from K1-K3-shaped calls, K5 (score
 and flags, shared-memory and scratch state; the formula score's banded
 column-sweep tier at every strip edge, and its routing), K6 (register and
-scratch words), K7 (register and scratch tiers), the two-pass wide-band CIGAR,
+scratch words), K7 (every group tier edge, both substitution forms), the
+two-pass wide-band CIGAR,
 sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
 map_reads (CUDA SAM = CPU SAM), -S *.bam (CUDA BAM = CPU BAM), and the
 alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
@@ -429,28 +430,48 @@ def test_bam_on_cuda_equals_cpu(cuda, tmp_path):
     assert got["cuda"] == got["cpu"]
 
 
-@pytest.mark.parametrize("lp,band_w", [(32, 7), (64, 15), (128, 31),
-                                       (16, 120), (16, 700)])
-@pytest.mark.parametrize("atype", list(AlignmentType),
-                         ids=[a.name.lower() for a in AlignmentType])
-def test_k7_matches_plain(cuda, atype, lp, band_w):
-    """K7 (compute_dtype="int16") against its plain version: the three
-    register tiers (16, 32, 64 cells) and the scratch tier (241 and 1401
-    cells), an odd batch (the last thread's second alignment is empty),
-    N, zero-length and unreachable lanes."""
-    from nvbio_tpu_torch.alignment.batched import banded_score_batch16
+#: (Lp, band_w) at every edge of K7's group tiers, by the live cells
+#: ops.banded_dp.k7_live_range gives (a band of 2w + 1 cells, less those
+#: below w - Lp8): 15 | 17 (the band is odd while w <= Lp8, so no band
+#: has 16), 31 | 33, 63 | 65 and 64 | 65 past k 0, 127 | 129, 128, 255 |
+#: 256 | 257, 512 | 513; the widest live band the guard admits at Lp 16
+#: (736 cells) and Lp 32 (404), and at Lp 128 (183, the widest whose
+#: cells left of the band are pinned)
+K7_SHAPES = [(32, 7), (32, 8), (64, 15), (64, 16), (64, 31), (64, 32),
+             (16, 47), (16, 48), (128, 63), (128, 64), (16, 111),
+             (16, 238), (16, 239), (16, 240), (16, 495), (16, 496),
+             (16, 719), (32, 371), (128, 91)]
 
+
+def _k7_case(lp, band_w, atype, nb=301):
+    """K7 inputs: windows of a seeded genome with planted, mutated
+    patterns (N included), an odd batch (the last pair's second
+    alignment is empty), zero-length patterns and windows, lanes with no
+    path (tlen + band_w < plen) and, for GLOBAL, goal cells in and out of
+    the band."""
     genome = np.random.default_rng(3).integers(0, 4, 20_000).astype(np.int8)
-    pats, plens, texts, tlens, quals, _ = _batch(lp + band_w, 301, lp,
+    pats, plens, texts, tlens, quals, _ = _batch(lp + band_w, nb, lp,
                                                  band_w, genome)
     rng = np.random.default_rng(4)
     plens[5:9], tlens[5:9] = lp, max(lp - band_w - 2, 0)  # no path
     if atype == AlignmentType.GLOBAL:  # goal cells in and out of the band
         tlens[9:] = np.clip(plens[9:] + rng.integers(
             -2 * band_w, 2 * band_w + 1, len(plens) - 9), 0, tlens[9:])
+    return [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+
+
+@pytest.mark.parametrize("lp,band_w", K7_SHAPES,
+                         ids=[f"lp{lp}_w{w}" for lp, w in K7_SHAPES])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k7_matches_plain(cuda, atype, lp, band_w):
+    """K7 (compute_dtype="int16") against its plain version at every
+    tier edge (K7_SHAPES), one launch, no K1."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch16
+
     kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
     assert banded_dp.int16_ok(lp, band_w, SCHEMES[atype])
-    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+    cpu = _k7_case(lp, band_w, atype)
     want = banded_score_batch16(*cpu, **kw)
     banded_dp.reset_launch_counts()
     got = banded_dp.banded_score(*[a.to(cuda) for a in cpu],
@@ -461,6 +482,55 @@ def test_k7_matches_plain(cuda, atype, lp, band_w):
     assert (want["score"] > -(1 << 29)).float().mean() > 0.3
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+#: schemes whose scores pass a signed byte (K7's compare-and-select
+#: substitution), inside the guard at every K7_BYTE_SHAPES shape
+K7_BIG = {AlignmentType.GLOBAL: GotohScheme(mismatch_min=129,
+                                            mismatch_max=130),
+          AlignmentType.SEMI_GLOBAL: GotohScheme(n_penalty=130),
+          AlignmentType.LOCAL: GotohScheme(match=130)}
+#: (Lp, band_w) on each tier that has the compare form: 4 x 4 (15
+#: cells), 4 x 8 (25), 8 x 8 (35 from k 0, cells left of the band
+#: pinned; 43 from k 10, the widest band such a scheme gets at Lp 16)
+K7_BYTE_SHAPES = [(16, 7), (16, 12), (32, 17), (16, 26)]
+
+
+@pytest.mark.parametrize("lp,band_w", K7_BYTE_SHAPES,
+                         ids=[f"lp{lp}_w{w}" for lp, w in K7_BYTE_SHAPES])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k7_scores_past_a_byte(cuda, atype, lp, band_w):
+    """K7 with scores past a signed byte (the compare form) against its
+    plain version, on every tier that has it."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch16
+
+    kw = dict(scheme=K7_BIG[atype], atype=atype, band_w=band_w)
+    assert banded_dp.int16_ok(lp, band_w, K7_BIG[atype])
+    cpu = _k7_case(lp, band_w, atype)
+    want = banded_score_batch16(*cpu, **kw)
+    banded_dp.reset_launch_counts()
+    got = banded_dp.banded_score(*[a.to(cuda) for a in cpu],
+                                 compute_dtype="int16", **kw)
+    assert banded_dp.KERNELS["K7"].launches == 1
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("scheme", [GotohScheme(n_penalty=-1),
+                                    GotohScheme(mismatch_min=7,
+                                                mismatch_max=6)],
+                         ids=["negative_penalty", "mismatch_min_above_max"])
+def test_k7_refuses_schemes_outside_the_convention(cuda, scheme):
+    """K7's headroom argument needs penalties >= 0, and int16_ok's bound
+    mismatch_min <= mismatch_max: the wrapper raises on CUDA rather than
+    launch."""
+    cpu = _k7_case(32, 7, AlignmentType.SEMI_GLOBAL, nb=8)
+    assert banded_dp.int16_ok(32, 7, scheme)
+    with pytest.raises(ValueError, match="penalties >= 0 and mismatch_min"):
+        banded_dp.banded_score(*[a.to(cuda) for a in cpu], scheme=scheme,
+                               atype=AlignmentType.SEMI_GLOBAL, band_w=7,
+                               compute_dtype="int16")
 
 
 def test_pe_sam_on_cuda_equals_cpu(cuda, tmp_path):

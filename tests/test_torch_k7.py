@@ -123,8 +123,8 @@ def test_plain_k7_matches_jax_k7(atype):
 @pytest.mark.parametrize("atype", list(AlignmentType),
                          ids=[a.name.lower() for a in AlignmentType])
 def test_plain_k7_wide_band_matches_jax_k7(atype):
-    """A band of 241 cells (the scratch tier on the card) at Lp 16,
-    inside the guard."""
+    """A band of 241 cells at Lp 16, inside the guard (on the card 137
+    of them live, the group kernel's 256-cell tier)."""
     lp, band_w = 16, 120
     scheme = SCHEMES[atype]
     assert banded_dp.int16_ok(lp, band_w, scheme)
