@@ -248,12 +248,14 @@ and nothing of nvbio_tpu: a finder refuses both.
 from __future__ import annotations
 
 import gzip
+import inspect
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".chip_smoke_work")
@@ -386,6 +388,8 @@ GROUP_TIERS = None
 K5_FULL_BUILD = []
 #: the same for the formula score's banded tier (k5_band_kernel)
 K5_BAND_BUILD = []
+#: and for the flag entry point's tier (k5_band_dirs_kernel)
+K5_DIRS_BUILD = []
 #: k7_ptxas of the build (empty for a cached build or a package without
 #: K7's group kernel)
 K7_BUILD = []
@@ -499,6 +503,25 @@ def phase_build():
                 f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an SM "
                 f"resident at Lp {WIDE_LP if t['max_warps'] == 16 else 8192}")
         K5_BAND_BUILD[:] = band
+        dirs = k5_full_ptxas(_build.build_info.get("ptxas_by_source", {})
+                             .get("wavefront_gotoh.cu", ""),
+                             "k5_band_dirs_kernel")
+        for t in dirs:
+            # a call whose grid takes the instantiation: pass 3's (clusters
+            # of 4-warp blocks), one of K5's score batch (a 16-warp block an
+            # alignment) and one whose 32-warp blocks take 9 000 rows in
+            # passes
+            nb, lp = {4: (WIDE_DIRS_NB, WIDE_LP), 16: (WIDE_NB, WIDE_LP),
+                      32: (1024, 9000)}[t["max_warps"]]
+            t["warps_per_sm"] = lib.k5_band_dirs_warps_per_sm(t["atype"], nb,
+                                                              lp)
+            log(f"[build] K5 flag tier ({t['max_warps']}-warp blocks), "
+                f"{['GLOBAL', 'SEMI_GLOBAL', 'LOCAL'][t['atype']]}: "
+                f"{t.get('registers')} registers, {t.get('smem')} B static "
+                f"shared, spill stores {t.get('spill_stores')} B, loads "
+                f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an SM "
+                f"resident at {nb} x {lp}")
+        K5_DIRS_BUILD[:] = dirs
         K7_BUILD[:] = k7_ptxas(_build.build_info.get("ptxas_by_source", {})
                                .get("banded_gotoh16.cu", ""))
         for t in K7_BUILD:
@@ -1458,16 +1481,30 @@ def phase_k5(torch, np):
         def p5d():
             return wavefront_dp.wavefront_dirs_plain(*dargs, **kw)
 
+        fn = wavefront_dp.wavefront_dirs
+        sweep0 = getattr(fn, "sweep_launches", None)
+        launches0 = fn.launches
         (rd, dd), (wd, ed) = k5d(), p5d()
         torch.cuda.synchronize()
+        if sweep0 is not None and (fn.sweep_launches - sweep0
+                                   != fn.launches - launches0 or
+                                   fn.launches != launches0 + 1):
+            fail("K5 with flags did not take the flag tier: "
+                 f"{fn.launches - launches0} launches, "
+                 f"{fn.sweep_launches - sweep0} on the tier")
         err = max(max_abs_err(torch, [rd[k] for k in keys] + [dd],
                               [wd[k] for k in keys] + [ed]),
                   max_abs_err(torch, [rd[k] for k in keys],
                               [r[k][:nd] for k in keys]))
+        # (the walks of a --turns parent without the sweep layout take no
+        # widths)
+        wkw = ({"lp": WIDE_LP, "lt": texts.shape[1]} if "lp" in
+               inspect.signature(walk_wavefront_dirs_device).parameters
+               else {})
         walk = walk_wavefront_dirs_device(dd, rd["p_end"], rd["t_end"],
-                                          band_w=WIDE_W)
+                                          band_w=WIDE_W, **wkw)
         walk_p = walk_wavefront_dirs_device(ed, wd["p_end"], wd["t_end"],
-                                            band_w=WIDE_W)
+                                            band_w=WIDE_W, **wkw)
         err = max(err, max_abs_err(torch, walk, walk_p))
         ops, n, ps, ts = (x.cpu().numpy() for x in walk)
         dd_h = dd.cpu().numpy()
@@ -1493,21 +1530,40 @@ def phase_k5(torch, np):
         out["K5_dirs"] = {"ms": dms, "plain_ms": dpms, "bound_ms": dbms,
                           "bound_by": dby, "yard_bound_ms": dyard,
                           "cells": cells_d,
-                          "flag_bytes": dd.numel(),
+                          "flag_bytes": dd.numel() * dd.element_size(),
                           "gcups": cells_d / dms / 1e6,
                           "plain_gcups": cells_d / dpms / 1e6,
-                          "tool_gcups": row_cells_d / dms / 1e6}
-        log(f"[k5] with flags NB={nd}: every flag byte ({dd.numel()}) and "
+                          "tool_gcups": row_cells_d / dms / 1e6,
+                          "occupancy": k5_dirs_occupancy(torch, wavefront_dp,
+                                                         nd, WIDE_LP)}
+        log(f"[k5] with flags NB={nd}: every flag byte "
+            f"({dd.numel() * dd.element_size()}) and "
             f"the device walk equal the plain version's, device walk = "
             f"host walk; kernel {dms:.3f} ms ({cells_d / dms / 1e6:.1f} "
             f"GCUPS over the {cells_d} cells needed, "
             f"{row_cells_d / dms / 1e6:.1f} as sw_benchmark counts), plain "
-            f"{dpms:.1f} ms; bound {dbms:.3f} ms ({dby})")
+            f"{dpms:.1f} ms; bound {dbms:.3f} ms ({dby}); grid "
+            f"{out['K5_dirs']['occupancy']}")
         del dd, ed, rd, wd
     out["K5"]["max_abs_err"] = out["K5_dirs"]["max_abs_err"] = worst
     if hasattr(wavefront_dp, "band_tier"):
         out["K5"]["threshold"] = k5_threshold(torch, np, wavefront_dp, rng)
     return out
+
+
+def k5_dirs_occupancy(torch, wavefront_dp, nb, lp):
+    """The flag tier's grid for ``nb`` alignments of width ``lp`` (blocks
+    a cluster, warps a block: one block an SM) and the warps an SM its
+    SEMI_GLOBAL kernel keeps resident; None for a package without the
+    tier (the parent of a --turns run)."""
+    if not hasattr(wavefront_dp, "dirs_plan"):
+        return None
+    cluster, warps = wavefront_dp.dirs_plan(nb, lp, torch.device(DEV))
+    lib = wavefront_dp._build.library()
+    return {"cluster": cluster, "warps_per_block": warps,
+            "blocks": nb * cluster,
+            "warps_per_sm": lib.k5_band_dirs_warps_per_sm(1, nb, lp),
+            "warps_per_sm_achieved": warps}
 
 
 def k5_diagonal_err(torch, wavefront_dp, args, kw, want):
@@ -1796,9 +1852,10 @@ def phase_pass3(torch, np):
     """wide_band_cigar_batch on 8 lanes whose certificate passes the 767
     ladder (one planted deletion each), through K5 with flags."""
     from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+    from nvbio_tpu_torch.alignment import wide
     from nvbio_tpu_torch.alignment.wide import (TB_BANDS, derive_tb_band,
                                                 wide_band_cigar_batch)
-    from nvbio_tpu_torch.ops import banded_dp
+    from nvbio_tpu_torch.ops import banded_dp, wavefront_dp
 
     dev = torch.device(DEV)
     rng = np.random.default_rng(SEED + 8)
@@ -1823,15 +1880,48 @@ def phase_pass3(torch, np):
     quals = np.full((nb, lp), 35, np.int32)
     args = [torch.from_numpy(a).to(dev)
             for a in (pats, plens, texts, tlens, quals)]
+    # pass 3's K5 calls timed by CUDA events, its device walks by the host
+    # clock (synchronised), inside the run (wide's own names are wrapped:
+    # the kernel's function keeps its counters)
+    k5_events, walk_s = [], []
+    dirs_fn = wavefront_dp.wavefront_dirs
+    walk_fn = wide.walk_wavefront_dirs_device
+
+    def timed_dirs(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = dirs_fn(*a, **kw)
+        ev[1].record()
+        k5_events.append(ev)
+        return res
+
+    def timed_walk(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = walk_fn(*a, **kw)
+        torch.cuda.synchronize()
+        walk_s.append(time.perf_counter() - t)
+        return res
+
     banded_dp.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = wide_band_cigar_batch(*args, scheme=scheme,
-                                atype=AlignmentType.SEMI_GLOBAL,
-                                band_w=band_w)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    wide.wavefront_dp = types.SimpleNamespace(wavefront_dirs=timed_dirs)
+    wide.walk_wavefront_dirs_device = timed_walk
+    try:
+        t0 = time.perf_counter()
+        out = wide_band_cigar_batch(*args, scheme=scheme,
+                                    atype=AlignmentType.SEMI_GLOBAL,
+                                    band_w=band_w)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        wide.wavefront_dp = wavefront_dp
+        wide.walk_wavefront_dirs_device = walk_fn
+    k5_ms = [a.elapsed_time(b) for a, b in k5_events]
     launches = {k: fn.launches for k, fn in banded_dp.KERNELS.items()}
+    if dirs_fn.sweep_launches != dirs_fn.launches:
+        fail(f"pass 3: {dirs_fn.launches} K5 flag calls, "
+             f"{dirs_fn.sweep_launches} of them on the flag tier")
     need, _ = derive_tb_band(plens, out["score"], out["p_end"],
                              out["t_end"], scheme, band_w)
     for b in range(nb):
@@ -1849,9 +1939,13 @@ def phase_pass3(torch, np):
     log(f"[pass3] {nb} lanes x {lp} bp at band_w {band_w}, planted "
         f"deletions {gaps.tolist()} (certificates {need.tolist()} > "
         f"{TB_BANDS[-1]}): every CIGAR re-scores to its score and holds its "
-        f"D run; {secs * 1e3:.1f} ms (host clock); launches {launches}")
+        f"D run; {secs * 1e3:.1f} ms (host clock), of which K5 with flags "
+        f"{sum(k5_ms):.3f} ms in {len(k5_ms)} call(s) (CUDA events) and the "
+        f"device walk {sum(walk_s) * 1e3:.1f} ms (host clock); launches "
+        f"{launches}")
     return {"launches": launches, "ms": secs * 1e3, "gaps": gaps.tolist(),
-            "need": need.tolist()}
+            "need": need.tolist(), "k5_dirs_ms": k5_ms,
+            "walk_ms": [t * 1e3 for t in walk_s]}
 
 
 def sam_records(path):
@@ -4528,8 +4622,9 @@ def timed_rows(result):
            "K4": occupancy("K4", LONG_W, LONG_NB, False),
            "K4_dirs": occupancy("K4", LONG_W, LONG_DIRS_NB, True)}
     occ.update({n: r["occupancy"] for n, r in ps.items()})
-    occ.update({n: k[n]["occupancy"] for n in ("K5_matrix", "K5_matrix_full")
-                if n in k})
+    occ.update({n: k[n]["occupancy"] for n in ("K5_matrix", "K5_matrix_full",
+                                                "K5_dirs")
+                if n in k and "occupancy" in k[n]})
     occ.update({K7_ROWS[n]: k["K7"][n]["occupancy"] for n in K7_SHAPES
                 if "K7" in k and n in k["K7"]})
     out = {}
@@ -4636,6 +4731,7 @@ def main():
         result["build_s"], result["group_tiers"] = phase_build()
         result["k5_full_build"] = K5_FULL_BUILD
         result["k5_band_build"] = K5_BAND_BUILD
+        result["k5_dirs_build"] = K5_DIRS_BUILD
         kernel_phases(torch, np, result)
         result["sw_benchmark"] = phase_sw_benchmark(torch)
         result["tool_shapes"] = phase_tool_shapes(torch, np)
@@ -4707,7 +4803,7 @@ def main():
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # the kernel symbol each row times, in its source
-    symbols = {"K5": "k5_band_kernel", "K5_dirs": "k5_kernel",
+    symbols = {"K5": "k5_band_kernel", "K5_dirs": "k5_band_dirs_kernel",
                "K7": "k7_group_kernel",
                "K5_matrix": "k5_full_kernel",
                "K5_matrix_full": "k5_full_kernel"}

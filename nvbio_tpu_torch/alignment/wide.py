@@ -194,8 +194,8 @@ def _wavefront_tb(out, hard, patterns, plens, texts, tlens, quals, scheme,
     Re-runs K5 on just the hard lanes with per-cell flags and walks them
     on the device; only the op streams come to the host.  K5 is the
     recurrence of pass 1, so scores and ends are unchanged; only the
-    CIGAR is new.  SLICE lanes a call bound the flag bytes (~12 MB a lane
-    at Lp 4 000, Lt 8 000, band_w 2 000)."""
+    CIGAR is new.  SLICE lanes a call bound the flag bytes (~8.8 MB a
+    lane at Lp 4 000, band_w 2 000)."""
     idx = np.flatnonzero(hard)
     dev = patterns.device
     runs_all = {}
@@ -207,7 +207,8 @@ def _wavefront_tb(out, hard, patterns, plens, texts, tlens, quals, scheme,
             None if quals is None else quals[sl], scheme=scheme, atype=atype,
             band_w=band_w)
         ops, n, ps, ts = walk_wavefront_dirs_device(
-            dirs, res["p_end"], res["t_end"], band_w=band_w)
+            dirs, res["p_end"], res["t_end"], band_w=band_w,
+            lp=patterns.shape[1], lt=texts.shape[1])
         del dirs
         ops_h, n_h, ps_h, ts_h = map(_host, (ops, n, ps, ts))
         sc = _host(res["score"])

@@ -60,9 +60,10 @@ _SIGNATURES = {
     # as the score entry points, plus dirs before the stream
     "k2_banded_directions": _DIRS,
     "k4_long_directions": _DIRS,
-    # as k4_long_score, plus the state scratch before out (and dirs after)
+    # as k4_long_score, plus the state scratch before out
     "k5_wavefront_score": _SCORE[:-2] + [_P, _P, _P],
-    "k5_wavefront_directions": _DIRS[:-3] + [_P, _P, _P, _P],
+    # K5's flag tier: the same, plus the scratch before out and dirs after
+    "k5_band_directions": _DIRS[:-3] + [_P, _P, _P, _P],
     # pats, plens, texts, tlens, nb, lp, lt, band_w, atype, eo, ee, fo,
     # fe, mat, mat_k, scratch, out, stream
     "k5_wavefront_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
@@ -81,6 +82,13 @@ _SIZES = {
     "k5_full_scratch_words": ([_I] * 4, ctypes.c_longlong),
     "k5_full_warps_per_sm": ([_I], ctypes.c_int),  # atype
     "k5_band_warps_per_sm": ([_I, _I], ctypes.c_int),  # atype, lp
+    # nb, lp, band_w
+    "k5_band_dirs_scratch_words": ([_I] * 3, ctypes.c_longlong),
+    # atype, nb, lp
+    "k5_band_dirs_warps_per_sm": ([_I] * 3, ctypes.c_int),
+    # nb, lp, plan (2 ints: blocks a cluster, warps a block): a
+    # cudaError_t
+    "k5_band_dirs_plan": ([_I] * 2 + [_P], ctypes.c_int),
     "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
     # nb, lp, band_w, k_lo, match, mm_min, mm_max, n_penalty, plan (6
     # ints): a cudaError_t

@@ -10,8 +10,13 @@
 //   k5_full_score_matrix     the matrix mode's full-band tier, for
 //                            band_w >= max(Lp, Lt) (below)
 //   k5_full_scratch_words, k5_full_warps_per_sm  its scratch and grid
-//   k5_wavefront_directions  score + sink + one 4-bit flag per band cell,
-//                            in the diagonal layout of ops/wavefront_dp.py
+//   k5_band_directions       score + sink + one 4-bit flag per band cell
+//                            on the banded column-sweep tier, in its
+//                            layout (ops/wavefront_dp.py), at any lp
+//   k5_band_dirs_plan, k5_band_dirs_scratch_words, k5_band_dirs_warps_per_sm
+//                            its grid (blocks a cluster, warps a block),
+//                            scratch (patterns past 32 strips) and warps
+//                            an SM
 //   k5_state_words           the per-block scratch a band needs when its
 //                            DP state does not fit in shared memory
 //   replace nvbio_tpu/ops/wavefront_dp.py  _make_wavefront_kernel /
@@ -29,16 +34,17 @@
 // row then lowest column (the twin's row-major scan); GLOBAL the cell at
 // the clipped goal column of row plen.  Flags: the twin's encoding, bits
 // 0-1 H source (diag, E, F; ties in that order; LOCAL H <= 0 origin),
-// bit 2 E open, bit 3 F open; 3 on row 0 and on every cell not computed.
+// bit 2 E open, bit 3 F open; 3 on every cell not computed.
 //
 // Design.  The TPU kernel ran one alignment per grid program with the
 // anti-diagonal across an (NR, 128) vector window that slid up the
 // pattern, fed text symbols systolically and carried sinks across window
-// rebases in SMEM scalars.  None of that is needed on the H100.  One
-// block owns one alignment and loops over its diagonals d = r + j; the
-// cells of a diagonal (rows r with |d - 2r| <= w, at most w + 1) lie
-// across the block's threads, two neighbouring rows per thread-step so
-// that a thread writes whole flag bytes.  Parametrised by the row, every
+// rebases in SMEM scalars.  None of that is needed on the H100.  The
+// diagonal kernel (k5_kernel: the formula score past 8192 rows, the matrix
+// mode's narrower bands): one block owns one alignment and loops over its
+// diagonals d = r + j; the cells of a diagonal (rows r with |d - 2r| <=
+// w, at most w + 1) lie across the block's threads, two neighbouring rows
+// per thread-step.  Parametrised by the row, every
 // dependence is a fixed row offset on an earlier diagonal:
 //   H(r-1, j)   vertical, diagonal d-1, row r-1  (F: H and F)
 //   H(r-1, j-1) diagonal, diagonal d-2, row r-1
@@ -50,9 +56,8 @@
 // __syncthreads per diagonal.  Pattern symbol, quality and text symbol
 // are read per cell through the read-only cache: neighbouring threads
 // read neighbouring bytes.  Sinks are per-thread running bests, reduced
-// over the block once at the end in the twin's tie order.  The score
-// entry point visits only rows <= plen and columns <= tlen; the flag
-// entry point visits rows <= Lp and writes every byte of its output.
+// over the block once at the end in the twin's tie order.  It visits only
+// rows <= plen and columns <= tlen.
 //
 // Matrix mode (MAT): the substitution is the twin's matrix gather
 // (nvbio_tpu/alignment/batched.py:41-46), table[clip(p) * K + clip(t)]
@@ -94,7 +99,7 @@
 // The formula score entry point has two tiers as well; the wrapper picks
 // one by shape.  Calls with Lp <= 8192, at any band (every K5 call of
 // sw_benchmark --long: 128 x 4000, band_w 2000), take k5_band_kernel;
-// wider patterns, and the flag entry point, k5_kernel.  The band tier
+// wider patterns k5_kernel.  The band tier
 // is fb_sweep's column sweep with the band's edges (bs_strip): one block
 // an alignment, warp p on the strip of pattern rows 256 p + 1 ..
 // 256 (p + 1), lane l on 8 of them in registers, one step behind lane
@@ -119,13 +124,43 @@
 // ~320 steps apart, so an SM holds fewer than its 16 warps for a while)
 // and the masked steps at each strip's ends, ~1.8 times a body step.
 //
+// The flag entry point (wide CIGAR's pass 3, 8 lanes a call) takes the
+// same sweep with flags at any Lp (k5_band_dirs_kernel): every row up to
+// Lp (the twin's flag rows; sinks keep row plen's rules in whichever
+// strip holds it), and at every step each lane stores one 32-bit word,
+// its 8 rows' flags a nibble each, so that a warp's store is 128
+// contiguous bytes: flags (nb, S, T, 32) for S = ceil(Lp / 256) strips
+// and T = 256 + 2 w + 32 steps, word [b, p, s, l] at column jbase(p) + s -
+// l, 3 in every nibble not computed (the kernel writes every word).  The
+// G form hides Hdiag (inside H's DPX operation) and E, so the flag is
+// rebuilt beside the chain: Hdiag = diag + sub, E = G - j ee, E open as
+// G == Hhat(j - 1) + j ee - (eo + ee), F open as F == H_up - (fo + fe),
+// with the entry and edge values of k5_kernel's left_out and x == w.
+// A call that would leave SMs idle (pass 3: 8 alignments, 16 strips each)
+// spreads an alignment's strips over a thread-block cluster of C blocks
+// (C = 4 there: four strips a block, a warp for each scheduler), the ring
+// between two blocks in the reader's shared memory, written through
+// distributed shared memory and fenced at cluster scope.  Where no cluster
+// fits (the batch fills the SMs, or a block would need more than 32
+// strips) C = 1: a block holds every strip, and patterns of more than 32
+// strips take passes of 32: the last strip of a pass leaves its last row
+// in a boundary row in device scratch, which warp 0 of the next pass reads
+// in place of a ring.
+// What bounds it: with C = 1 the score tier's issue on one SM an alignment
+// plus ~8 flag instructions a cell and a store a step; spread over a
+// cluster, each warp's step latency (8 rows of three dependent DPX
+// operations, beside its flag and store instructions) times the critical
+// path: strip p starts ~300 steps after strip p - 1 and sweeps ~2 w + 290
+// steps (~9 000 steps at pass 3's shape).
+//
 // What bounds the diagonal kernel on the H100: per cell about 30 int32
 // operations and 9 shared-memory accesses behind one barrier per
 // diagonal, with one block of up to 1024 threads per alignment; the
 // parallelism is the cells of a diagonal times the alignments in flight.
-// With flags, the (w + 1) / 2 bytes written per diagonal.
 
 #include <limits.h>
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -173,7 +208,7 @@ __device__ __forceinline__ Best shfl_best(const Best& v, int delta) {
               __shfl_down_sync(FULL, v.k, delta)};
 }
 
-template <int ATYPE, bool DIRS, bool MAT>
+template <int ATYPE, bool MAT>
 __global__ void __launch_bounds__(MAX_THREADS)
     k5_kernel(Args a, int32_t* scratch, int ring, int smem_rings,
               const int32_t* mat, int mat_k) {
@@ -201,11 +236,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int8_t* pat = a.pats + static_cast<int64_t>(b) * lp;
   const uint8_t* qual = a.quals + static_cast<int64_t>(b) * lp;
   const int8_t* text = a.texts + static_cast<int64_t>(b) * lt;
-  const int rmax = DIRS ? lp : max(min(plen, lp), 0);
-  const int ndiag = DIRS ? lp + lt + 1 : max(rmax + tlen + 1, 0);
-  const int npairs = (w + 2) / 2;
-  uint8_t* dirs = DIRS ? a.dirs + static_cast<int64_t>(b) * ndiag * npairs
-                       : nullptr;
+  const int rmax = max(min(plen, lp), 0);
+  const int ndiag = max(rmax + tlen + 1, 0);
   const int x_goal =
       min(max(tlen - plen + w, 0), 2 * w) - w;  // GLOBAL's clipped goal
 
@@ -225,13 +257,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const int32_t* const Fp = st + (3 + prv) * ring;
     const int32_t* const Ep = st + (5 + prv) * ring;
     const int32_t* const Hhp = st + (7 + prv) * ring;
-    int p_begin = 0, p_end = npairs;
-    if (!DIRS) {
-      p_begin = max(r_min - rlo, 0) >> 1;
-      p_end = r_max >= r_min ? ((r_max - rlo) >> 1) + 1 : 0;
-    }
+    const int p_begin = max(r_min - rlo, 0) >> 1;
+    const int p_end = r_max >= r_min ? ((r_max - rlo) >> 1) + 1 : 0;
     for (int p = p_begin + tid; p < p_end; p += nt) {
-      int byte = 0x33;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int r = rlo + 2 * p + c;
@@ -280,12 +308,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
         Fc[ri] = F;
         Ec[ri] = E;
         Hhc[ri] = Hhat;
-        if (DIRS) {
-          int f = H == Hdiag ? 0 : (H == E ? 1 : 2);
-          if (ATYPE == LOCAL && H <= 0) f = 3;
-          f |= (E == e_open ? 4 : 0) | (F == f_open ? 8 : 0);
-          byte = (byte & ~(0xf << (4 * c))) | (f << (4 * c));
-        }
         if (ATYPE == GLOBAL) {
           if (r == plen && x == x_goal) best.h = H;
         } else if ((ATYPE == LOCAL ? r <= plen : r == plen) &&
@@ -293,8 +315,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
           best = Best{H, r, x + w};
         }
       }
-      if (DIRS) dirs[static_cast<int64_t>(d) * npairs + p] =
-          static_cast<uint8_t>(byte);
     }
     __syncthreads();
   }
@@ -324,34 +344,33 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <int ATYPE, bool DIRS, bool MAT>
+template <int ATYPE, bool MAT>
 cudaError_t launch_one(const Args& a, int32_t* scratch, const int32_t* mat,
                        int mat_k, cudaStream_t stream) {
   const int ring = ring_size(a.band_w);
   const int smem = rings_in_smem(a.band_w) ? N_RINGS * ring * 4 : 0;
-  const int npairs = (a.band_w + 2) / 2;
+  const int npairs = (a.band_w + 2) / 2;  // two rows a thread-step
   const int nt = min(MAX_THREADS, (npairs + 31) / 32 * 32);
   cudaError_t err = cudaFuncSetAttribute(
-      k5_kernel<ATYPE, DIRS, MAT>,
+      k5_kernel<ATYPE, MAT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  k5_kernel<ATYPE, DIRS, MAT><<<a.nb, nt, smem, stream>>>(
+  k5_kernel<ATYPE, MAT><<<a.nb, nt, smem, stream>>>(
       a, scratch, ring, smem > 0, mat, mat_k);
   return cudaGetLastError();
 }
 
-template <bool DIRS, bool MAT>
+template <bool MAT>
 cudaError_t launch(const Args& a, int atype, int32_t* scratch,
                    const int32_t* mat, int mat_k, cudaStream_t stream) {
   if (a.nb == 0) return cudaSuccess;
   switch (atype) {
     case GLOBAL:
-      return launch_one<GLOBAL, DIRS, MAT>(a, scratch, mat, mat_k, stream);
+      return launch_one<GLOBAL, MAT>(a, scratch, mat, mat_k, stream);
     case SEMI_GLOBAL:
-      return launch_one<SEMI_GLOBAL, DIRS, MAT>(a, scratch, mat, mat_k,
-                                                stream);
+      return launch_one<SEMI_GLOBAL, MAT>(a, scratch, mat, mat_k, stream);
     case LOCAL:
-      return launch_one<LOCAL, DIRS, MAT>(a, scratch, mat, mat_k, stream);
+      return launch_one<LOCAL, MAT>(a, scratch, mat, mat_k, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -622,6 +641,10 @@ constexpr int BS_RPL = 8;
 constexpr int BS_ROWS = 32 * BS_RPL;
 // strips (warps) an alignment at most: Lp <= BS_MAX_WARPS * BS_ROWS
 constexpr int BS_MAX_WARPS = 32;
+// blocks of the flag tier's cluster at most (the portable cluster size),
+// and the strips a block of its own choosing keeps at least
+constexpr int BS_MAX_CLUSTER = 8;
+constexpr int BS_MIN_WARPS = 4;
 // columns of the ring between two strips (a power of two); the reader
 // waits for 33 columns ahead and the writer for the slot it overwrites,
 // so any size above 64 is free of deadlock
@@ -636,21 +659,48 @@ struct BsCtx {
   Scheme sc;
 };
 
+// a fence over the block, or (wide: a boundary between two blocks of a
+// cluster) over the cluster
+__device__ __forceinline__ void bs_fence(bool wide) {
+  if (wide)
+    asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  else
+    __threadfence_block();
+}
+
 // (a wait of ~seconds means a fault in the protocol: trap, so that the
 // launch fails instead of hanging the card)
-__device__ __forceinline__ void bs_wait(const volatile int* c, int need) {
+__device__ __forceinline__ void bs_wait(const volatile int* c, int need,
+                                        bool wide = false) {
   for (int n = 0; *c < need; ++n) {
     if (n == (1 << 26)) __trap();
     __nanosleep(32);
   }
-  __threadfence_block();
+  bs_fence(wide);
 }
 
-__device__ __forceinline__ void bs_publish(volatile int* c, int v, bool me) {
+__device__ __forceinline__ void bs_publish(volatile int* c, int v, bool me,
+                                           bool wide = false) {
   __syncwarp();
-  __threadfence_block();
+  bs_fence(wide);
   if (me) *c = v;
 }
+
+// A strip's two boundaries: ``in`` (the row above, read by lane 0 or by
+// every lane) and ``out`` (its last row, written by lane 31), each either a
+// ring of BS_RING columns with its published and consumed counts (ring_in,
+// ring_out; wide: the ring lies in another block of the cluster, reached
+// through distributed shared memory, and its counts are fenced at cluster
+// scope) or a whole row in device scratch (mask -1, no counts).  The
+// writer's counts lie where the writer polls (its consumed count) and the
+// reader's where the reader polls (the published count).
+struct BsLinks {
+  const int2* in;
+  int2* out;
+  volatile int *in_prod, *in_cons, *out_prod, *out_cons;
+  int imask, omask;
+  bool ring_in, ring_out, wide_in, wide_out;
+};
 
 // One strip: rows base + 1 .. base + rows (base = strip * BS_ROWS) on one
 // warp.  Lane l holds rows r0 .. r0 + 7 (r0 = base + 8 l + 1) and works
@@ -878,6 +928,259 @@ __device__ __forceinline__ void bs_strip(const BsCtx& c, int strip, int lane,
   }
 }
 
+// The flag tier's strip (k5_band_dirs_kernel): bs_strip's sweep, kept apart
+// from it so that the score tier's code stays as it was (one function with
+// the flag work behind a template switch rescheduled the score tier's
+// steps: 2.025 -> 2.095 ms at sw_benchmark's shape on an H100; sharing
+// only the set-up, sinks and chunk loop through inlined helpers still cost
+// both tiers ~1 %: PERF.md).  A fix to the strips' edge rules (sb / se,
+// EENTRY / FEDGE, fin_in) goes into both.
+// Every step the lane also stores one 32-bit word into fl (its column of
+// the strip's (T, 32) words), row r0 + i's flag in nibble i, k5_kernel's
+// encoding rebuilt from the G form beside the chain: Hdiag = diag + sub,
+// E = G - j ee, E open as G == Hhat(j-1) + j ee - (eo + ee) (left_out:
+// E == NEG_INF - (eo + ee)), F open as F == H_up - (fo + fe) (x == w:
+// F == NEG_INF - (fo + fe)); 3 in the nibbles of rows outside the band or
+// past R, in the words of steps the lane does not compute, and in the
+// steps from the last to T.  Its boundaries are links (BsLinks) that
+// k5_band_dirs_kernel sets: rings in its block, in a neighbouring block of
+// its cluster, or boundary rows in device scratch between passes.  Sinks
+// as bs_strip's, LOCAL's over rows <= plen (R is Lp here).
+template <int ATYPE, bool SINK>
+__device__ __forceinline__ void bsd_strip(const BsCtx& c, int strip, int lane,
+                                          const BsLinks& L, Best& best,
+                                          int* goal, uint32_t* fl, int T) {
+  constexpr int rmask = BS_RING - 1;
+  constexpr uint32_t F3 = 0x33333333u;  // 3 in every nibble
+  const Scheme sc = c.sc;
+  const int w = c.w, R = c.R, tlen = c.tlen, lt = c.lt;
+  const int base = strip * BS_ROWS;
+  const int rows = min(R - base, BS_ROWS);
+  const bool more = base + BS_ROWS < R;
+  const int2* const in = L.in;
+  int2* const out = L.out;
+  const int imask = L.imask, omask = L.omask;
+  const bool ring_in = L.ring_in, ring_out = L.ring_out;
+  const bool wide_in = L.wide_in, wide_out = L.wide_out;
+  const int nl = (rows + BS_RPL - 1) / BS_RPL;  // lanes with a row
+  const int r0 = base + lane * BS_RPL + 1;
+  const bool has_rows = lane < nl;
+  const int lo = max(0, r0 - w);
+  const int hi = min(tlen, min(r0 + BS_RPL - 1, R) + w);
+  const int j0 = max(0, base + 1 - w);          // lane 0's first column
+  const int jmax = min(tlen, base + rows + w);  // the last lane's last
+  const int jbase = j0 - 1;  // lane 0's column at step 0, which only fetches
+  const int nsteps = jmax < j0 ? 0 : jmax - jbase + nl;
+  // the body: steps at which every lane with a row has all its rows in the
+  // band, past their entry column and column 0, short of the x == w edge
+  const int sb = max(base + (nl - 1) * BS_RPL + 1 + BS_RPL - w, 1) - jbase +
+                 nl - 1;
+  const int se = max(min(tlen, base + w) - jbase + 1, sb);
+  const int EMASK = NEG_INF - (sc.eo + sc.ee);
+  const int eoe = sc.eo + sc.ee, foe = sc.fo + sc.fe;
+  const int EENTRY = max(EMASK - sc.ee, NEG_INF - eoe);
+  const int FEDGE = max(NEG_INF - foe, NEG_INF - sc.fe);
+  const int fin_in = min(tlen, base + w) + 1;  // strip - 1 writes below it
+  // the nibbles of the lane's rows up to R
+  const uint32_t rowm =
+      r0 > R ? 0u
+             : (r0 + BS_RPL - 1 <= R
+                    ? 0xffffffffu
+                    : 0xffffffffu >> (4 * (r0 + BS_RPL - 1 - R)));
+
+  int P[BS_RPL], mis[BS_RPL], Hp[BS_RPL], Hh[BS_RPL], G[BS_RPL];
+#pragma unroll
+  for (int i = 0; i < BS_RPL; ++i) {
+    const int r = r0 + i;
+    int p = 0, mm = 0;
+    if (r <= R) {
+      p = __ldg(c.pat + r - 1);
+      const int q = min(static_cast<int>(__ldg(c.qual + r - 1)), 40);
+      mm = sc.mm_min + floor_div40((sc.mm_max - sc.mm_min) * q);
+    }
+    P[i] = p;
+    mis[i] = p >= 4 ? -sc.n_penalty : -mm;
+    Hp[i] = NEG_INF;
+    Hh[i] = NEG_INF;
+    G[i] = EMASK;
+  }
+  int bh[ATYPE == LOCAL ? BS_RPL : 1], bj[ATYPE == LOCAL ? BS_RPL : 1];
+#pragma unroll
+  for (int i = 0; i < (ATYPE == LOCAL ? BS_RPL : 1); ++i) {
+    bh[i] = 0;
+    bj[i] = 0;
+  }
+  int sbh = NEG_INF, sbj = 0;  // SEMI_GLOBAL: row plen's first maximum
+  const int ip = (c.plen - 1) & (BS_RPL - 1);     // row plen's slot
+  const int lsink = (c.plen - 1 - base) / BS_RPL;  // and lane
+  const int jgoal =
+      c.plen + min(max(tlen - c.plen + w, 0), 2 * w) - w;  // GLOBAL
+  int oh = NEG_INF, of = NEG_INF;  // the lane's last row's H and F
+  int up_prev = NEG_INF;  // the vertical input of the step before
+  int tcur;               // the text symbol of the step's column
+  {
+    const int j = jbase - lane;
+    tcur = (j >= 1 && j - 1 < lt) ? __ldg(c.text + j - 1) : PAD_SYMBOL;
+  }
+  // lane 0's row above at column jj
+  auto boundary = [&](int jj) -> int2 {
+    if (strip == 0)
+      return make_int2(jj < 0 ? NEG_INF
+                              : (ATYPE == GLOBAL && jj > 0 ? -sc.eo - sc.ee * jj
+                                                           : 0),
+                       NEG_INF);
+    return jj < 0 ? make_int2(NEG_INF, NEG_INF) : in[jj & imask];
+  };
+  int2 bcur = make_int2(NEG_INF, NEG_INF);
+  // j * ee - (eo + ee) and -j * ee of the step's column, carried from step
+  // to step (opaque to the compiler, which would otherwise fold -j * ee
+  // into an IMAD and split H's DPX operation in two)
+  int cj = (jbase - 1 - lane) * sc.ee - eoe;
+  int mj = -(jbase - 1 - lane) * sc.ee;
+
+  auto step = [&](int s, auto masked_tag) {
+    constexpr bool MASKED = decltype(masked_tag)::value;
+    const int j = jbase + s - lane;
+    cj += sc.ee;
+    mj -= sc.ee;
+    asm volatile("" : "+r"(cj), "+r"(mj));
+    int uh = __shfl_up_sync(FULL, oh, 1);
+    int uf = __shfl_up_sync(FULL, of, 1);
+    if (lane == 0) {
+      uh = bcur.x;
+      uf = bcur.y;
+    }
+    int diag = up_prev;
+    up_prev = uh;
+    const int ts = tcur;
+    // 0 <= j < lt (lanes without a row can be left of column 0)
+    tcur = static_cast<unsigned>(j) < static_cast<unsigned>(lt)
+               ? __ldg(c.text + j)
+               : PAD_SYMBOL;
+    if (MASKED) {
+      if (strip == 0 || lane == 0) bcur = boundary(jbase + s + 1);
+    } else {  // column jbase + s + 1 >= 2; strip 0 has no ring (a block
+              // of one warp has no shared memory for it)
+      const int jj = jbase + s + 1;
+      if (strip > 0)
+        bcur = in[jj & imask];  // every lane: one broadcast, no branch
+      else
+        bcur = make_int2(ATYPE == GLOBAL ? -sc.eo - sc.ee * jj : 0, NEG_INF);
+    }
+    if (MASKED && !(has_rows && j >= lo && j <= hi)) {
+      fl[static_cast<int64_t>(s) * 32] = F3;
+      return;
+    }
+    const bool tn = ts >= 4;
+    const int mv = tn ? -sc.n_penalty : sc.match;
+    int xa = 0, xc = 0, gent = 0;
+    if (MASKED) {
+      xa = j - r0 + w;  // row i is at x == -w when xa == i
+      xc = j - r0 - w;  // and at x == w when xc == i
+      gent = EENTRY - mj;
+      if (j == 0) diag = NEG_INF;
+    }
+    int hs = NEG_INF;
+    bool hs_in = !MASKED;
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < BS_RPL; ++i) {
+      int F = __viaddmax_s32(uh, -foe, uf - sc.fe);
+      if (MASKED && xc == i) F = FEDGE;
+      const int sub = (P[i] == ts || tn) ? mv : mis[i];
+      const int hh = ATYPE == LOCAL ? __viaddmax_s32_relu(diag, sub, F)
+                                    : __viaddmax_s32(diag, sub, F);
+      int g = __viaddmax_s32(Hh[i], cj, G[i]);
+      if (MASKED && (xa == i || j == 0)) g = gent;
+      const int H = __viaddmax_s32(g, mj, hh);  // LOCAL: hh >= 0 already
+      {  // k5_kernel's flag: H source, E and F open
+        // f_open, and e_open + j ee (left_out: NEG_INF - (eo + ee))
+        const int fop = MASKED && xc == i ? NEG_INF - foe : uh - foe;
+        const int gop = MASKED && (xa == i || j == 0) ? NEG_INF - eoe - mj
+                                                      : Hh[i] + cj;
+        int f = H == diag + sub ? 0 : (H == g + mj ? 1 : 2);
+        if (ATYPE == LOCAL && H <= 0) f = 3;
+        f |= (g == gop ? 4 : 0) | (F == fop ? 8 : 0);
+        word |= static_cast<uint32_t>(f) << (4 * i);
+      }
+      diag = Hp[i];
+      Hp[i] = H;
+      Hh[i] = hh;
+      G[i] = g;
+      if constexpr (SINK) {
+        const bool inb = !MASKED || (xa >= i && xc <= i);
+        if constexpr (ATYPE == LOCAL) {
+          if (inb && H > bh[i]) {
+            bh[i] = H;
+            bj[i] = j;
+          }
+        } else if (i == ip) {
+          hs = H;
+          hs_in = inb;
+        }
+      }
+      uh = H;
+      uf = F;
+    }
+    oh = uh;
+    of = uf;
+    {  // rows past R, and rows out of the band, read 3
+      uint32_t m = rowm;
+      if (MASKED) {
+        const int ia = min(xa, BS_RPL - 1), ic = max(xc, 0);
+        m &= (0xffffffffu >> (4 * (BS_RPL - 1 - ia + ic))) << (4 * ic);
+      }
+      fl[static_cast<int64_t>(s) * 32] = (word & m) | (F3 & ~m);
+    }
+    if constexpr (SINK && ATYPE != LOCAL) {
+      if (lane == lsink) {
+        if (ATYPE == GLOBAL) {
+          if (j == jgoal) *goal = hs;
+        } else if (hs_in && hs > sbh) {
+          sbh = hs;
+          sbj = j;
+        }
+      }
+    }
+    if (more && lane == 31) out[j & omask] = make_int2(oh, of);
+  };
+
+  for (int s = 0; s < nsteps;) {  // chunks of 32 steps
+    if (ring_in) {
+      bs_publish(L.in_cons, jbase + s, lane == 0, wide_in);
+      bs_wait(L.in_prod, min(jbase + s + 33, fin_in), wide_in);
+    }
+    if (ring_out) {
+      bs_publish(L.out_prod, jbase + s - 31, lane == 31, wide_out);
+      bs_wait(L.out_cons, jbase + s - rmask, wide_out);
+    }
+    if (s == 0 && lane == 0) bcur = boundary(jbase);
+    const int e = min(s + 32, nsteps);
+    if (s >= sb && e <= se) {
+      for (; s < e; ++s) step(s, std::false_type{});
+    } else {
+      for (; s < e; ++s) step(s, std::true_type{});
+    }
+  }
+  if (ring_in) bs_publish(L.in_cons, INT_MAX, lane == 0, wide_in);
+  if (ring_out) bs_publish(L.out_prod, INT_MAX, lane == 31, wide_out);
+  for (int s = nsteps; s < T; ++s) fl[static_cast<int64_t>(s) * 32] = F3;
+  if constexpr (SINK) {
+    if constexpr (ATYPE == LOCAL) {
+#pragma unroll
+      for (int i = 0; i < BS_RPL; ++i) {
+        const int r = r0 + i;
+        const Best cand{bh[i], r, bj[i] - r + w};
+        if (has_rows && r <= R && r <= c.plen && better(cand, best))
+          best = cand;
+      }
+    } else if (ATYPE == SEMI_GLOBAL) {
+      const Best cand{sbh, c.plen, sbj - c.plen + w};
+      if (lane == lsink && sbh > NEG_INF && better(cand, best)) best = cand;
+    }
+  }
+}
+
 // One block an alignment, warp p on strip p, blockDim = 32 * ceil(Lp /
 // BS_ROWS) (MAXW warps at most), (warps - 1) rings of BS_RING int2 in
 // dynamic shared memory.  Warps past the alignment's strips idle to the
@@ -935,7 +1238,154 @@ __global__ void __launch_bounds__(MAXW * 32) k5_band_kernel(Args a) {
   }
 }
 
-int bs_warps(int lp) { return (lp + BS_ROWS - 1) / BS_ROWS; }
+__host__ __device__ inline int bs_warps(int lp) {
+  return (lp + BS_ROWS - 1) / BS_ROWS;
+}
+
+// the flag tier's steps a strip (T): the widest strip's 256 + 2 w + 31
+// steps, and one
+__host__ __device__ inline int bs_steps(int band_w) {
+  return BS_ROWS + 2 * band_w + 32;
+}
+
+// columns of a boundary row between two passes of the flag tier: a strip's
+// lane 0 fetches up to column lp + w + 32
+__host__ __device__ inline long long bs_cols(int lp, int band_w) {
+  return static_cast<long long>(lp) + band_w + 33;
+}
+
+// The flag entry point's tier (k5_band_directions): k5_band_kernel's
+// sweep over every row up to Lp (the flag entry point's rows), each strip
+// storing its flag words into flags, (nb, S, T, 32) 32-bit words for S =
+// ceil(lp / BS_ROWS) strips; every word written.  A cluster of C blocks
+// takes an alignment (C = 1: a plain launch).  Block k of it holds
+// warps for strips k nw .. k nw + nw - 1 (C > 1: one pass, S <= C nw);
+// ring 0 of block k + 1 takes block k's last strip's row, written through
+// distributed shared memory, its published count in block k + 1 and its
+// consumed count in block k (cnt[2 BS_MAX_WARPS + 1]), fenced at cluster
+// scope; the cluster syncs after set-up, after the sweep and after block
+// k's best reaches block 0, which writes the result.  With C = 1 the
+// block's nw warps take the S strips in passes (warp p on strip p0 + p)
+// with a barrier between passes; the last warp of a pass hands its last
+// row to the next pass's warp 0 through ``bound``: two rows of bs_cols int2
+// an alignment, pass q writing row q & 1, so that no pass writes the row
+// its warp 0 reads.  Ring w of a block holds the row above its warp w's
+// strip (ring 0 unused with C = 1).  Sinks keep k5_band_kernel's rules on
+// row plen, in whichever strip holds it; a lane with plen > Lp has no row
+// plen and ends, as the plain version's, at (0, 0) outside LOCAL.
+template <int ATYPE, int MAXW>
+__global__ void __launch_bounds__(MAXW * 32)
+    k5_band_dirs_kernel(Args a, uint32_t* flags, int2* bound) {
+  namespace cg = cooperative_groups;
+  extern __shared__ int2 bs_rings[];
+  __shared__ int cnt[2 * BS_MAX_WARPS + 2];
+  __shared__ Best wbest[BS_MAX_WARPS];
+  __shared__ Best cbest[BS_MAX_CLUSTER];
+  __shared__ int goal;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = cl.num_blocks(), rank = cl.block_rank();
+  const int b = blockIdx.x / C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int plen = a.plens[b], lp = a.lp;
+  const BsCtx c{a.pats + static_cast<int64_t>(b) * lp,
+                a.quals + static_cast<int64_t>(b) * lp,
+                a.texts + static_cast<int64_t>(b) * a.lt,
+                a.lt, a.band_w, plen, a.tlens[b], lp, a.sc};
+  const int S = bs_warps(lp), T = bs_steps(c.w);
+  const long long cols = bs_cols(lp, c.w);
+  int2* const brow = bound + static_cast<int64_t>(b) * 2 * cols;
+  // GLOBAL's sink cell: block 0's
+  int* const gp = C > 1 ? cl.map_shared_rank(&goal, 0) : &goal;
+  volatile int* const box = cnt + 2 * BS_MAX_WARPS + 1;  // outbox consumed
+  if (threadIdx.x == 0) goal = NEG_INF;
+  Best best = ATYPE == LOCAL ? Best{0, 0, c.w} : Best{NEG_INF, plen, 0};
+  // the strip that holds row plen (none when plen is 0 or past Lp)
+  const int sink = plen >= 1 && plen <= lp ? (plen - 1) / BS_ROWS : -1;
+  auto jb = [&](int strip) { return max(0, strip * BS_ROWS + 1 - c.w) - 1; };
+  auto sync = [&] {
+    if (C > 1)
+      cl.sync();
+    else
+      __syncthreads();
+  };
+  auto run = [&](int p0, int pass) {  // strips p0 .. p0 + nw - 1
+    const int strip = p0 + warp;
+    if (lane == 0) {  // nothing published, nothing read
+      cnt[2 * warp] = INT_MIN;
+      cnt[2 * warp + 1] = jb(strip);
+    }
+    if (threadIdx.x == 0) *box = jb(p0 + nw);
+    sync();  // (C > 1: before a neighbour publishes into this block)
+    if (strip < S) {
+      const bool more = strip + 1 < S, last = warp == nw - 1;
+      const bool wide_in = C > 1 && warp == 0 && strip > 0;
+      const bool wide_out = C > 1 && last && more;
+      BsLinks L{bs_rings + warp * BS_RING, bs_rings + (warp + 1) * BS_RING,
+                cnt + 2 * warp, cnt + 2 * warp + 1, cnt + 2 * warp + 2,
+                cnt + 2 * warp + 3, BS_RING - 1, BS_RING - 1,
+                strip > 0 && (warp > 0 || C > 1), more && (!last || C > 1),
+                wide_in, wide_out};
+      if (wide_in)
+        L.in_cons =
+            cl.map_shared_rank(cnt + 2 * BS_MAX_WARPS + 1, rank - 1);
+      if (wide_out) {
+        L.out = cl.map_shared_rank(bs_rings, rank + 1);
+        L.out_prod = cl.map_shared_rank(cnt, rank + 1);
+        L.out_cons = box;
+      }
+      if (C == 1 && warp == 0) {  // the boundary row of the pass before
+        L.in = brow + ((pass + 1) & 1) * cols;
+        L.imask = -1;
+      }
+      if (C == 1 && last) {
+        L.out = brow + (pass & 1) * cols;
+        L.omask = -1;
+      }
+      uint32_t* fl =
+          flags + (static_cast<int64_t>(b) * S + strip) * T * 32 + lane;
+      if (ATYPE == LOCAL ? strip * BS_ROWS < plen : strip == sink)
+        bsd_strip<ATYPE, true>(c, strip, lane, L, best, gp, fl, T);
+      else
+        bsd_strip<ATYPE, false>(c, strip, lane, L, best, gp, fl, T);
+    }
+    sync();  // the pass's boundary row is whole, its rings free (C > 1: no
+             // neighbour writes into this block any more)
+  };
+  if (C > 1) {
+    run(rank * nw, 0);
+  } else {
+    for (int p0 = 0, pass = 0; p0 < S; p0 += nw, ++pass) run(p0, pass);
+  }
+#pragma unroll
+  for (int delta = 16; delta > 0; delta >>= 1) {
+    const Best o = shfl_best(best, delta);
+    if (better(o, best)) best = o;
+  }
+  if (lane == 0) wbest[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < nw; ++i)
+      if (better(wbest[i], best)) best = wbest[i];
+    if (C > 1) *cl.map_shared_rank(&cbest[rank], 0) = best;
+  }
+  if (C > 1) cl.sync();  // every block's best is in block 0
+  if (rank == 0 && threadIdx.x == 0) {
+    for (int i = 1; i < C; ++i)
+      if (better(cbest[i], best)) best = cbest[i];
+    const bool past = plen > lp;
+    if (ATYPE == GLOBAL) {  // k5_kernel's output rules
+      a.out[b] = goal;
+      a.out[a.nb + b] = past ? 0 : plen;
+      a.out[2 * a.nb + b] = plen == 0 || past ? 0 : c.tlen;
+    } else {
+      const bool none = ATYPE == SEMI_GLOBAL && past;
+      a.out[b] = best.h;
+      a.out[a.nb + b] = none ? 0 : best.r;
+      a.out[2 * a.nb + b] = none ? 0 : max(best.r + best.k - c.w, 0);
+    }
+  }
+}
 
 int bs_smem(int nw) { return (nw - 1) * BS_RING * sizeof(int2); }
 
@@ -978,6 +1428,91 @@ cudaError_t bs_dispatch(const Args& a, int atype, int nw, cudaStream_t st,
   }
 }
 
+// The flag tier's grid: C blocks an alignment (a cluster), the largest
+// power of two <= BS_MAX_CLUSTER that leaves a block BS_MIN_WARPS strips
+// at least (a warp for each of an SM's four schedulers) and BS_MAX_WARPS
+// at most, with nb * C blocks <= the card's SMs (one alignment an SM
+// leaves the rest idle at pass 3's 8 lanes), and ceil(S / C) warps a
+// block; C = 1 where no cluster size fits (the block then takes its
+// strips in passes of 32).  (At pass 3's 8 x 4 000, band_w 2 000 on an
+// H100, C = 1, 2, 4 and 8 took 4.04, 3.08, 2.59 and 2.65 ms: PERF.md.)
+cudaError_t bsd_plan(int nb, int lp, int* C, int* nw) {
+  const int S = bs_warps(lp);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int c = 1;
+  for (int k = 2; k <= BS_MAX_CLUSTER && k * BS_MIN_WARPS <= S &&
+                  static_cast<long long>(nb) * k <= sms;
+       k *= 2)
+    if ((S + k - 1) / k <= BS_MAX_WARPS) c = k;
+  *C = c;
+  *nw = c > 1 ? (S + c - 1) / c : min(S, BS_MAX_WARPS);
+  return cudaSuccess;
+}
+
+// the flag tier's dynamic shared memory: a ring a warp (ring 0 takes the
+// row of the cluster's block before)
+int bsd_smem(int nw) { return nw * BS_RING * sizeof(int2); }
+
+template <int ATYPE, int MAXW>
+cudaError_t bsd_launch_one(const Args& a, int C, int nw, cudaStream_t st,
+                           int* per_sm, uint32_t* flags, int2* bound) {
+  const auto kernel = k5_band_dirs_kernel<ATYPE, MAXW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bsd_smem(nw));
+  if (err != cudaSuccess) return err;
+  if (per_sm)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, nw * 32, bsd_smem(nw));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.nb * C);
+  cfg.blockDim = dim3(nw * 32);
+  cfg.dynamicSmemBytes = bsd_smem(nw);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a, flags, bound);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the kernel bounded to the block's warps: 4 (a cluster's blocks at pass
+// 3: up to 255 registers a thread, where 16 warps' 128 spilled), 16 (up
+// to 128) or 32 (up to 64)
+template <int ATYPE>
+cudaError_t bsd_launch(const Args& a, int C, int nw, cudaStream_t st,
+                       int* per_sm, uint32_t* flags, int2* bound) {
+  if (nw <= BS_MIN_WARPS)
+    return bsd_launch_one<ATYPE, BS_MIN_WARPS>(a, C, nw, st, per_sm, flags,
+                                               bound);
+  if (nw <= 16)
+    return bsd_launch_one<ATYPE, 16>(a, C, nw, st, per_sm, flags, bound);
+  return bsd_launch_one<ATYPE, BS_MAX_WARPS>(a, C, nw, st, per_sm, flags,
+                                             bound);
+}
+
+cudaError_t bsd_dispatch(const Args& a, int atype, int C, int nw,
+                         cudaStream_t st, int* per_sm = nullptr,
+                         uint32_t* flags = nullptr, int2* bound = nullptr) {
+  switch (atype) {
+    case GLOBAL:
+      return bsd_launch<GLOBAL>(a, C, nw, st, per_sm, flags, bound);
+    case SEMI_GLOBAL:
+      return bsd_launch<SEMI_GLOBAL>(a, C, nw, st, per_sm, flags, bound);
+    case LOCAL:
+      return bsd_launch<LOCAL>(a, C, nw, st, per_sm, flags, bound);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -999,7 +1534,7 @@ int k5_wavefront_score(const void* pats, const void* quals, const void* plens,
   const Args a = k5_args(pats, quals, plens, texts, tlens, nb, lp, lt, band_w,
                          match, mm_min, mm_max, n_penalty, eo, ee, fo, fe,
                          out);
-  return static_cast<int>(launch<false, false>(
+  return static_cast<int>(launch<false>(
       a, atype, static_cast<int32_t*>(scratch), nullptr, 0,
       static_cast<cudaStream_t>(stream)));
 }
@@ -1016,7 +1551,7 @@ int k5_wavefront_score_matrix(const void* pats, const void* plens,
   if (mat_k < 1 || mat_k > MAX_MAT_K) return cudaErrorInvalidValue;
   const Args a = k5_args(pats, nullptr, plens, texts, tlens, nb, lp, lt,
                          band_w, 0, 0, 0, 0, eo, ee, fo, fe, out);
-  return static_cast<int>(launch<false, true>(
+  return static_cast<int>(launch<true>(
       a, atype, static_cast<int32_t*>(scratch),
       static_cast<const int32_t*>(mat), mat_k,
       static_cast<cudaStream_t>(stream)));
@@ -1113,21 +1648,60 @@ int k5_band_warps_per_sm(int atype, int lp) {
              : -1;
 }
 
-// As k5_wavefront_score, plus dirs: (nb, lp + lt + 1, (band_w + 2) / 2)
-// uint8, every byte written.
-int k5_wavefront_directions(const void* pats, const void* quals,
-                            const void* plens, const void* texts,
-                            const void* tlens, int nb, int lp, int lt,
-                            int band_w, int atype, int match, int mm_min,
-                            int mm_max, int n_penalty, int eo, int ee, int fo,
-                            int fe, void* scratch, void* out, void* dirs,
-                            void* stream) {
-  Args a = k5_args(pats, quals, plens, texts, tlens, nb, lp, lt, band_w,
-                   match, mm_min, mm_max, n_penalty, eo, ee, fo, fe, out);
-  a.dirs = static_cast<uint8_t*>(dirs);
-  return static_cast<int>(launch<true, false>(
-      a, atype, static_cast<int32_t*>(scratch), nullptr, 0,
-      static_cast<cudaStream_t>(stream)));
+// int32 words of device scratch k5_band_directions needs: the boundary
+// rows between its passes (two rows of lp + band_w + 33 (H, F) pairs an
+// alignment) when the pattern has more strips than a block has warps,
+// else 0; -1 for lp < 1.
+long long k5_band_dirs_scratch_words(int nb, int lp, int band_w) {
+  if (lp < 1 || band_w < 0) return -1;
+  return bs_warps(lp) > BS_MAX_WARPS ? 4LL * nb * bs_cols(lp, band_w) : 0;
+}
+
+// The flag tier's grid for this call into plan[0..1]: blocks an alignment
+// (a cluster; 1 for a plain launch) and warps a block.  Returns a
+// cudaError_t.
+int k5_band_dirs_plan(int nb, int lp, void* plan) {
+  if (lp < 1) return cudaErrorInvalidValue;
+  int* const p = static_cast<int*>(plan);
+  return static_cast<int>(bsd_plan(nb, lp, p, p + 1));
+}
+
+// As k5_band_score, plus dirs: (nb, ceil(lp / 256), 256 + 2 band_w + 32,
+// 32) 32-bit words of 8 flags (module header), every word written, on
+// k5_band_dirs_plan's grid; scratch holds
+// k5_band_dirs_scratch_words(nb, lp, band_w) int32 words (unused when that
+// is 0).  Any lp >= 1.
+int k5_band_directions(const void* pats, const void* quals, const void* plens,
+                       const void* texts, const void* tlens, int nb, int lp,
+                       int lt, int band_w, int atype, int match, int mm_min,
+                       int mm_max, int n_penalty, int eo, int ee, int fo,
+                       int fe, void* scratch, void* out, void* dirs,
+                       void* stream) {
+  if (lp < 1 || band_w < 0) return cudaErrorInvalidValue;
+  if (nb == 0) return cudaSuccess;
+  const Args a = k5_args(pats, quals, plens, texts, tlens, nb, lp, lt, band_w,
+                         match, mm_min, mm_max, n_penalty, eo, ee, fo, fe,
+                         out);
+  int C = 0, nw = 0;
+  cudaError_t err = bsd_plan(nb, lp, &C, &nw);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(bsd_dispatch(
+      a, atype, C, nw, static_cast<cudaStream_t>(stream), nullptr,
+      static_cast<uint32_t*>(dirs), static_cast<int2*>(scratch)));
+}
+
+// Warps of the flag tier's kernel an SM keeps resident for a call of nb
+// alignments at this Lp (its blocks have k5_band_dirs_plan's warps); -1 on
+// a CUDA error.
+int k5_band_dirs_warps_per_sm(int atype, int nb, int lp) {
+  if (lp < 1) return -1;
+  int per_sm = 0, C = 0, nw = 0;
+  const Args a = {};
+  return bsd_plan(nb, lp, &C, &nw) == cudaSuccess &&
+                 bsd_dispatch(a, atype, C, nw, nullptr, &per_sm) ==
+                     cudaSuccess
+             ? per_sm * nw
+             : -1;
 }
 
 }  // extern "C"

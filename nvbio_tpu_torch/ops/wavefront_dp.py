@@ -1,5 +1,4 @@
-"""K5: wide-band banded Gotoh along anti-diagonals, score-only and with
-flags.
+"""K5: wide-band banded Gotoh, score-only and with flags.
 
 Port of ``nvbio_tpu/ops/wavefront_dp.py`` (``wavefront_score_pallas``
 ``:349``, ``wavefront_dirs_pallas`` ``:321``, both through
@@ -15,16 +14,32 @@ formula score entry point has two tiers; the shape alone picks one:
   rows' band one step behind lane l - 1; strip p + 1 reads strip p's last
   row from a ring in shared memory as it is written.
   ``wavefront_score.sweep_launches`` counts these calls.
-- wider patterns, and every ``wavefront_dirs`` call: the diagonal
-  kernel (``k5_wavefront_score``, ``k5_wavefront_directions``): one block
+- wider patterns: the diagonal kernel (``k5_wavefront_score``): one block
   per alignment, the anti-diagonal across its threads, every diagonal in
   a loop inside the block.
+
+The flag entry point (``wavefront_dirs``, wide CIGAR's pass 3) takes the
+same banded column sweep with flags (``k5_band_directions``) at any Lp:
+every row up to Lp, each lane storing one 32-bit word of its 8 rows'
+flags a step, so that a warp stores 128 contiguous bytes a step.
+Where the batch leaves SMs idle (pass 3 calls it on 8 lanes) an
+alignment's strips spread over a thread-block cluster (``dirs_plan``:
+4 blocks of 4 strips at pass 3's Lp 4 000), the rings between blocks in
+distributed shared memory; where the batch fills the SMs, or a block of
+the cluster would need more than 32 strips, one block takes them all,
+patterns of more than 32 strips in passes of 32 that hand their last row
+on through a boundary row in device scratch.  ``wavefront_dirs.
+sweep_launches`` counts these calls (all of them).  What bounds it: a
+strip's step latency (8 rows of three dependent operations) on the
+critical path of ~Lp + 2 w steps plus ~300 a strip handoff; on one block
+an alignment, its warps' issue of ~8 flag instructions a cell beside the
+score's.
 
 K5 returns raw twin values (``wavefront_dp.py:33-40``): its plain version
 is ``alignment/batched.py`` ``banded_score_batch(twin=True)``, and the
 plain version of its flags is the twin's flags
 (``banded_directions_batch``) laid out as the kernel writes them
-(``twin_flags_to_diagonals``).  The wrappers take the plain versions for
+(``twin_flags_to_sweep``).  The wrappers take the plain versions for
 tensors on the CPU, and only then; for CUDA tensors they launch the kernel
 or raise.  ``wavefront_score.launches`` and ``wavefront_dirs.launches``
 count the launches (the former of both tiers).
@@ -53,14 +68,17 @@ in ``csrc/wavefront_gotoh.cu`` with the table staged in shared memory:
 The shape alone picks the tier.  No tool walks a protein traceback, so
 ``wavefront_dirs`` refuses a matrix scheme.
 
-Flag layout (the port's own; only ``alignment/wavefront_walk.py`` reads
-it).  Cell (r, j) lies on diagonal d = r + j at slot q = r - rlo(d), with
-rlo(d) = ceil((d - w) / 2), so the in-band cells of a diagonal (|j - r|
-<= w) are slots 0..w.  dirs is (NB, D, ceil((w + 1) / 2)) uint8 with
-D = Lp + Lt + 1: two slots per byte, slot q in the low nibble when q is
-even.  The nibble is the twin's encoding (bits 0-1 H source diag / E / F
-/ origin, bit 2 E open, bit 3 F open); row 0, cells outside the band and
-invalid cells (j < 0 or j > tlen) hold 3.
+Flag layout (the port's own, the sweep's; only
+``alignment/wavefront_walk.py`` reads it).  dirs is (NB, S, T, 32)
+int32 (the bits of 32-bit words), S = ceil(Lp / SWEEP_ROWS) strips and T
+= SWEEP_ROWS + 2 w + 32 steps (``flag_shape``).  Word [b, p, s, l] holds
+lane l's rows r0 .. r0 + 7, r0 = SWEEP_ROWS p + SWEEP_RPL l + 1, at
+column j = jbase(p) + s - l, jbase(p) = max(0, SWEEP_ROWS p + 1 - w) - 1
+(``sweep_jbase``), row r0 + i in nibble i.  The nibble is the twin's
+encoding (bits 0-1 H source diag / E / F / origin, bit 2 E open, bit 3 F
+open); cells outside the band, invalid cells (j < 0 or j > tlen) and
+rows past Lp hold 3, as every word of a step the kernel does not
+compute.
 """
 
 from __future__ import annotations
@@ -88,6 +106,12 @@ MAX_DIRS_BYTES = 6 << 30
 #: pattern rows a lane of the full-band tier holds (``FB_RPL`` in
 #: ``csrc/wavefront_gotoh.cu``); a pass sweeps 32 * FULL_RPL rows
 FULL_RPL = 8
+
+#: pattern rows a lane, and a strip (a warp), of the banded column-sweep
+#: tiers (``BS_RPL``, ``BS_ROWS`` in ``csrc/wavefront_gotoh.cu``): the
+#: flag layout's nibbles a word and rows a strip
+SWEEP_RPL = 8
+SWEEP_ROWS = 32 * SWEEP_RPL
 
 #: the formula score entry point's banded tier (``k5_band_score``) takes
 #: patterns of at most 32 strips of 256 rows (a warp a strip, one block
@@ -120,28 +144,46 @@ def check_wavefront(lp: int, lt: int, band_w: int, scheme) -> None:
         raise ValueError("score range too wide for the int32 body")
 
 
-def flag_shape(lp: int, lt: int, band_w: int) -> tuple[int, int]:
-    """(D, bytes per diagonal) of the flag layout (module docstring)."""
-    return lp + lt + 1, (band_w + 2) // 2
+def flag_shape(lp: int, band_w: int) -> tuple[int, int]:
+    """(S, T) of the flag layout (module docstring): strips of SWEEP_ROWS
+    pattern rows, and steps a strip."""
+    return -(-lp // SWEEP_ROWS), SWEEP_ROWS + 2 * band_w + 32
 
 
-def twin_flags_to_diagonals(dirs, lt: int, band_w: int) -> torch.Tensor:
+def sweep_jbase(strip, band_w: int):
+    """The column lane 0 of ``strip`` (an int or an int64 tensor) works
+    at step 0: ``jbase`` of ``bs_strip``."""
+    if isinstance(strip, torch.Tensor):
+        return (strip * SWEEP_ROWS + 1 - band_w).clamp(min=0) - 1
+    return max(0, strip * SWEEP_ROWS + 1 - band_w) - 1
+
+
+def twin_flags_to_sweep(dirs, band_w: int) -> torch.Tensor:
     """The twin's flags (NB, Lp, 2w+1), row r at index r - 1 and band
-    column k = j - r + w, in the kernel's diagonal layout (NB, D, DB);
-    3 outside the twin's rows and band.  Cells of the twin's rows that
-    are invalid already hold 3 there."""
+    column k = j - r + w, in the kernel's sweep layout (NB, S, T, 32)
+    int32: nibble i of word [b, p, s, l] is cell (r, j) = (SWEEP_ROWS p +
+    SWEEP_RPL l + 1 + i, sweep_jbase(p) + s - l), 3 outside the twin's rows
+    and band.  Cells of the twin's rows that are invalid already hold 3
+    there."""
     nb, lp, band = dirs.shape
-    ndiag, db = flag_shape(lp, lt, band_w)
+    n_strips, n_steps = flag_shape(lp, band_w)
     dev = dirs.device
-    d = torch.arange(ndiag, device=dev)[:, None]
-    q = torch.arange(2 * db, device=dev)[None, :]
-    r = -torch.div(band_w - d, 2, rounding_mode="floor") + q
-    k = d - 2 * r + band_w
-    ok = (r >= 1) & (r <= lp) & (k >= 0) & (k < band) & (q <= band_w)
-    flat = ((r - 1).clamp(0, lp - 1) * band + k.clamp(0, band - 1))
-    nib = torch.where(ok[None], dirs.reshape(nb, -1)[:, flat.reshape(-1)]
-                      .reshape(nb, ndiag, 2 * db).to(torch.int32), 3)
-    return (nib[:, :, 0::2] | (nib[:, :, 1::2] << 4)).to(torch.uint8)
+    p = torch.arange(n_strips, device=dev).view(-1, 1, 1)
+    s = torch.arange(n_steps, device=dev).view(1, -1, 1)
+    lane = torch.arange(32, device=dev).view(1, 1, -1)
+    j = sweep_jbase(p, band_w) + s - lane
+    flat = dirs.reshape(nb, lp * band)
+    words = torch.zeros((nb, n_strips, n_steps, 32), dtype=torch.int64,
+                        device=dev)
+    for i in range(SWEEP_RPL):  # one nibble at a time: bounded memory
+        r = p * SWEEP_ROWS + lane * SWEEP_RPL + 1 + i
+        k = j - r + band_w
+        ok = (r <= lp) & (k >= 0) & (k < band)
+        idx = ((r - 1).clamp(max=lp - 1) * band + k.clamp(0, band - 1))
+        nib = flat[:, idx.reshape(-1)].reshape(words.shape).to(torch.int64)
+        words |= torch.where(ok, nib, 3) << (4 * i)
+    # the 32-bit words as int32 (torch has no uint32 arithmetic)
+    return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
 def wavefront_dirs_plain(patterns, plens, texts, tlens, quals=None, *,
@@ -152,7 +194,7 @@ def wavefront_dirs_plain(patterns, plens, texts, tlens, quals=None, *,
     res, dirs = banded_directions_batch(patterns, plens, texts, tlens, quals,
                                         scheme=scheme, atype=atype,
                                         band_w=band_w, twin=True)
-    return res, twin_flags_to_diagonals(dirs, texts.shape[1], band_w)
+    return res, twin_flags_to_sweep(dirs, band_w)
 
 
 def _scratch(lib, nb: int, band_w: int, dev) -> torch.Tensor:
@@ -214,13 +256,32 @@ def _launch_k5_matrix(patterns, plens, texts, tlens, scheme, atype, band_w):
     return _launch.result(out)
 
 
+def dirs_plan(nb: int, lp: int, dev) -> tuple[int, int]:
+    """(blocks an alignment, warps a block) of the flag tier's launch for
+    ``nb`` alignments of width ``lp`` on CUDA device ``dev``: a cluster of
+    blocks while the batch leaves SMs idle (pass 3's 8 lanes take 8 SMs
+    an alignment) and a block of the cluster needs at most 32 strips,
+    else one block taking the strips, in passes past 32."""
+    import ctypes
+
+    plan = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        rc = _build.library().k5_band_dirs_plan(nb, lp,
+                                                ctypes.addressof(plan))
+    if rc != 0:
+        raise ValueError(f"K5's flag tier has no grid for nb={nb}, Lp={lp} "
+                         f"(CUDA error {rc})")
+    return plan[0], plan[1]
+
+
 def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
                kernel):
     """Stage the inputs and launch one of K5's formula C entries by name:
     ``k5_band_score`` (the banded column sweep, Lp <= BAND_MAX_LP),
-    ``k5_wavefront_score`` or ``k5_wavefront_directions`` (the diagonal
-    kernel; the latter returns (result, dirs)).  Counts nothing: the
-    public wrappers pick the entry and count their launches."""
+    ``k5_wavefront_score`` (the diagonal kernel) or ``k5_band_directions``
+    (the sweep with flags, any Lp, on ``dirs_plan``'s grid; returns
+    (result, dirs)).  Counts nothing: the public wrappers pick the entry
+    and count their launches."""
     pats, qual, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens,
                                                    quals)
     tx = _launch.stage_texts(texts, pats.shape[0])
@@ -233,20 +294,27 @@ def _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype, band_w,
     if kernel == "k5_band_score":
         _launch.call(kernel, dev, *head, out.data_ptr())
         return _launch.result(out)
-    scratch = _scratch(_build.library(), nb, band_w, dev)
-    args = (*head, scratch.data_ptr(), out.data_ptr())
-    if kernel == "k5_wavefront_directions":
-        ndiag, db = flag_shape(lp, lt, band_w)
-        if nb * ndiag * db > MAX_DIRS_BYTES:
+    lib = _build.library()
+    if kernel == "k5_band_directions":
+        n_strips, n_steps = flag_shape(lp, band_w)
+        nbytes = nb * n_strips * n_steps * 32 * 4
+        if nbytes > MAX_DIRS_BYTES:
             raise ValueError(
-                f"wavefront flags would need {nb * ndiag * db / 2**30:.1f} "
-                "GiB; walk fewer alignments per call")
-        dirs = torch.empty((nb, ndiag, db), dtype=torch.uint8, device=dev)
-        _launch.call(kernel, dev, *args, dirs.data_ptr())
+                f"wavefront flags would need {nbytes / 2**30:.1f} GiB; walk "
+                "fewer alignments per call")
+        # the boundary rows between passes of 32 strips (Lp > 8 192)
+        words = lib.k5_band_dirs_scratch_words(nb, lp, band_w)
+        scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
+        # every word is written by the kernel
+        dirs = torch.empty((nb, n_strips, n_steps, 32), dtype=torch.int32,
+                           device=dev)
+        _launch.call(kernel, dev, *head, scratch.data_ptr(),
+                     out.data_ptr(), dirs.data_ptr())
         return _launch.result(out), dirs
     if kernel != "k5_wavefront_score":
         raise ValueError(f"no K5 formula entry {kernel!r}")
-    _launch.call(kernel, dev, *args)
+    scratch = _scratch(lib, nb, band_w, dev)
+    _launch.call(kernel, dev, *head, scratch.data_ptr(), out.data_ptr())
     return _launch.result(out)
 
 
@@ -304,10 +372,16 @@ def wavefront_score_matrix(patterns, plens, texts, tlens, *, scheme,
 def wavefront_dirs(patterns, plens, texts, tlens, quals=None, *,
                    scheme: GotohScheme, atype: AlignmentType, band_w: int):
     """K5 with flags: ``wavefront_score``'s outputs plus one 4-bit flag
-    per band cell in the diagonal layout (module docstring).
+    per band cell in the sweep layout (module docstring).  On CUDA
+    tensors every call takes the banded column sweep with flags
+    (``k5_band_directions``), at any Lp.
 
-    Returns (result dict, dirs (NB, Lp + Lt + 1, ceil((w + 1) / 2))
-    uint8).  A matrix scheme raises ValueError (module docstring)."""
+    Returns (result dict, dirs (NB, S, T, 32) int32 with (S, T) =
+    ``flag_shape(Lp, band_w)``).  A matrix scheme raises ValueError
+    (module docstring).
+    The result equals ``wavefront_score``'s, except on a lane with plen
+    > Lp, where it is the plain version's (score NEG_INF, ends 0 outside
+    LOCAL)."""
     if _is_matrix(scheme):
         raise ValueError("K5's flag entry point takes no substitution "
                          "matrix: score a matrix scheme with "
@@ -318,8 +392,9 @@ def wavefront_dirs(patterns, plens, texts, tlens, quals=None, *,
                                     scheme=scheme, atype=atype,
                                     band_w=band_w)
     res = _launch_k5(patterns, plens, texts, tlens, quals, scheme, atype,
-                     band_w, "k5_wavefront_directions")
+                     band_w, "k5_band_directions")
     wavefront_dirs.launches += 1
+    wavefront_dirs.sweep_launches += 1
     return res
 
 
@@ -328,3 +403,4 @@ wavefront_score.sweep_launches = 0
 wavefront_score_matrix.launches = 0
 wavefront_score_matrix.full_launches = 0
 wavefront_dirs.launches = 0
+wavefront_dirs.sweep_launches = 0

@@ -603,11 +603,10 @@ def _wavefront_inputs(seed, nb, lp, band_w):
                          ids=[a.name.lower() for a in AlignmentType])
 def test_k5_matches_plain(cuda, atype, band_w):
     """K5 score-only (the tier the gate picks, and the diagonal kernel
-    by its C entry) and with flags (every byte), and the device walk
-    over the kernel's flags, against the plain versions; band_w 4200
-    keeps its state in device scratch instead of shared memory."""
-    from nvbio_tpu_torch.alignment.wavefront_walk import (
-        walk_wavefront_dirs_device)
+    by its C entry) and with flags (the banded sweep's flag tier, every
+    word), and the device walk over the kernel's flags, against the plain
+    versions; band_w 4200 keeps the diagonal kernel's state in device
+    scratch instead of shared memory."""
     from nvbio_tpu_torch.ops import wavefront_dp
 
     lp, nb = (200, 4) if band_w > 1000 else (200, 9)
@@ -621,6 +620,7 @@ def test_k5_matches_plain(cuda, atype, band_w):
     torch.cuda.synchronize()
     assert wavefront_dp.wavefront_score.launches == 1
     assert wavefront_dp.wavefront_dirs.launches == 1
+    assert wavefront_dp.wavefront_dirs.sweep_launches == 1
     assert wavefront_dp.wavefront_score.sweep_launches == 1  # Lp 200
     diag = wavefront_dp._launch_k5(*dev, kw["scheme"], atype, band_w,
                                    "k5_wavefront_score")
@@ -631,12 +631,129 @@ def test_k5_matches_plain(cuda, atype, band_w):
         assert torch.equal(diag[k].cpu(), want[k]), ("diagonal score", k)
         assert torch.equal(got_r[k].cpu(), want_r[k]), ("dirs", k)
     assert torch.equal(got_d.cpu(), want_d)
+    _assert_same_walks(got_r, got_d, want_r, want_d, band_w, lp,
+                       cpu[2].shape[1])
+
+
+def _assert_same_walks(got_r, got_d, want_r, want_d, band_w, lp, lt):
+    """The device walk over the kernel's flags (on the card) = the device
+    walk over the plain flags (on the CPU)."""
+    from nvbio_tpu_torch.alignment.wavefront_walk import (
+        walk_wavefront_dirs_device)
+
+    kw = dict(band_w=band_w, lp=lp, lt=lt)
     walk_k = walk_wavefront_dirs_device(got_d, got_r["p_end"],
-                                        got_r["t_end"], band_w=band_w)
+                                        got_r["t_end"], **kw)
     walk_p = walk_wavefront_dirs_device(want_d, want_r["p_end"],
-                                        want_r["t_end"], band_w=band_w)
+                                        want_r["t_end"], **kw)
     for g, w in zip(walk_k, walk_p):
         assert torch.equal(g.cpu(), w)
+
+
+def _k5_dirs_on_card(cuda, cpu, atype, band_w, score_lanes):
+    """wavefront_dirs on the card (the flag tier on its own grid) = its
+    plain version on the CPU: every flag word, the result, the device
+    walk; the result on ``score_lanes`` also = wavefront_score's on the
+    card.  Returns the tier's grid, ``dirs_plan``'s (blocks an alignment,
+    warps a block)."""
+    from nvbio_tpu_torch.ops import wavefront_dp
+
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    dev = [a.to(cuda) for a in cpu]
+    banded_dp.reset_launch_counts()
+    got_r, got_d = wavefront_dp.wavefront_dirs(*dev, **kw)
+    torch.cuda.synchronize()
+    assert wavefront_dp.wavefront_dirs.launches == 1
+    assert wavefront_dp.wavefront_dirs.sweep_launches == 1
+    lp = cpu[0].shape[1]
+    assert got_d.shape == (len(cpu[1]), *wavefront_dp.flag_shape(lp, band_w),
+                           32)
+    want_r, want_d = wavefront_dp.wavefront_dirs(*cpu, **kw)
+    for k in want_r:
+        assert torch.equal(got_r[k].cpu(), want_r[k]), k
+    assert torch.equal(got_d.cpu(), want_d)
+    score = wavefront_dp.wavefront_score(*dev, **kw)
+    for k in score:
+        assert torch.equal(score[k][score_lanes].cpu(),
+                           want_r[k][score_lanes]), ("score", k)
+    _assert_same_walks(got_r, got_d, want_r, want_d, band_w, lp,
+                       cpu[2].shape[1])
+    return wavefront_dp.dirs_plan(len(cpu[1]), lp, cuda)
+
+
+@pytest.mark.parametrize("band_w", [5, 256, 2000])
+@pytest.mark.parametrize("lp", [1, 255, 256, 257, 4000])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_band_dirs_tier_matches_plain(cuda, atype, lp, band_w):
+    """K5's flag tier (the banded column sweep with one flag word a lane a
+    step) at every strip edge and pass-3's Lp 4 000, at bands narrower
+    than a lane's rows, of a strip and pass 3's 2 000: tests/_k5_band_cases'
+    edge lanes, _wavefront_inputs' lanes (Lp >= 2) and one lane whose
+    plen exceeds Lp (where the other K5 tiers report plen as the end and
+    the plain version 0): every flag word, the result and the device walk
+    equal the plain version's, on the tier's own grid (at these 8 lanes
+    one block an alignment of its S strips, at Lp 4 000 a cluster of 4
+    blocks of 4), and the result equals wavefront_score's on every lane
+    with plen <= Lp."""
+    import _k5_band_cases as k5_cases
+
+    lt = lp + 2 * band_w
+    lanes = [k5_cases.batch(lp, band_w, lt, seed=lp + band_w)]
+    if lp >= 2:
+        lanes.append(_wavefront_inputs(lp + band_w, 3, lp, band_w))
+    past = k5_cases.batch(lp, band_w, lt, seed=lp + band_w + 1)
+    lanes.append([x[3:] for x in past])
+    cpu = [torch.from_numpy(np.concatenate(a)) for a in zip(*lanes)]
+    cpu[1][-1] = lp + 5
+    nb = len(cpu[1])
+    plan = _k5_dirs_on_card(cuda, cpu, atype, band_w, slice(0, nb - 1))
+    assert plan == ((4, 4) if lp == 4000 else (1, -(-lp // 256)))
+
+
+def _k5_grid_inputs(nb, lp, band_w):
+    """_wavefront_inputs' lanes (0-2: plen 0, tlen 0, a goal outside the
+    band) with lanes 3.. ending within the band (tlen = plen + band_w //
+    2), so that their GLOBAL and SEMI_GLOBAL walks cross the strips even
+    at narrow bands."""
+    pats, plens, texts, tlens, quals = _wavefront_inputs(lp + band_w, nb, lp,
+                                                         band_w)
+    tlens[3:] = np.minimum(plens[3:] + band_w // 2, texts.shape[1])
+    return [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+
+
+# (lanes, Lp, band_w, (blocks an alignment, warps a block)) on a card of
+# 80 to 159 SMs (the H100's 132): the shape alone picks the grid
+_DIRS_GRIDS = [
+    (4, 65537, 16, (1, 32)),   # 257 strips: no cluster of <= 32 a block
+    (40, 16385, 16, (1, 32)),  # 65 strips: 2 blocks need 33, 4 need 160 SMs
+    (200, 9000, 16, (1, 32)),  # 36 strips, the batch fills the SMs
+    (200, 4000, 256, (1, 16)),  # one pass
+    (4, 2500, 256, (2, 5)),
+    (4, 8193, 16, (8, 5)),
+    (4, 9000, 256, (8, 5)),
+    (40, 8193, 16, (2, 17)),   # 32-warp blocks in a cluster
+    (4, 65536, 16, (8, 32)),   # the widest cluster of the widest blocks
+]
+
+
+@pytest.mark.parametrize(
+    "case", _DIRS_GRIDS, ids=lambda c: f"{c[0]}x{c[1]}-w{c[2]}")
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k5_band_dirs_grids(cuda, atype, case):
+    """K5's flag tier on each grid the shape picks: one block an alignment
+    taking more than 32 strips in passes of 32 through the boundary row in
+    device scratch (9, 3 and 2 passes) or the batch's 16 in one pass
+    where it fills the SMs, and clusters of 2 and 8 blocks of 5, 17 and 32
+    warps (4: test_k5_band_dirs_tier_matches_plain at Lp 4 000); every
+    flag word, the result, the walk and wavefront_score against the plain
+    version, and the grid asserted."""
+    nb, lp, band_w, plan = case
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 80 <= sms < 160, sms  # the grids above assume it
+    cpu = _k5_grid_inputs(nb, lp, band_w)
+    assert _k5_dirs_on_card(cuda, cpu, atype, band_w, slice(None)) == plan
 
 
 def _k5_score_on_card(cuda, cpu, atype, band_w):
@@ -710,8 +827,8 @@ def test_k5_score_kernels_narrow_bands(cuda, atype, lp, band_w):
                          ids=[a.name.lower() for a in AlignmentType])
 def test_k5_band_tier_routing(cuda, atype):
     """Lp 8 192 (32 strips, the tier's widest block) takes the tier, and
-    so do narrow bands (255, 16); Lp 8 193 stays on the diagonal kernel,
-    and so does every wavefront_dirs call; all equal their plain
+    so do narrow bands (255, 16); Lp 8 193 stays on the diagonal kernel;
+    every wavefront_dirs call takes the flag tier; all equal their plain
     versions."""
     from nvbio_tpu_torch.ops import wavefront_dp
 
@@ -727,7 +844,8 @@ def test_k5_band_tier_routing(cuda, atype):
     got_r, got_d = wavefront_dp.wavefront_dirs(*[a.to(cuda) for a in cpu],
                                                **kw)
     assert wavefront_dp.wavefront_dirs.launches == 1
-    assert wavefront_dp.wavefront_score.sweep_launches == 0
+    assert wavefront_dp.wavefront_dirs.sweep_launches == 1
+    assert wavefront_dp.wavefront_score.launches == 0
     want_r, want_d = wavefront_dp.wavefront_dirs(*cpu, **kw)
     for k in want_r:
         assert torch.equal(got_r[k].cpu(), want_r[k]), k
@@ -759,9 +877,10 @@ def test_k6_matches_plain(cuda, atype, lp):
 
 def test_wide_cigar_pass3_on_cuda(cuda):
     """The forced 850 bp deletion of tests/test_wide_cigar.py through
-    K5, K5 with flags and the device walk: the same outputs as on the
-    CPU."""
+    K5, K5 with flags (the flag tier) and the device walk: the same
+    outputs as on the CPU."""
     from nvbio_tpu_torch.alignment.wide import wide_band_cigar_batch
+    from nvbio_tpu_torch.ops import wavefront_dp
 
     rng = np.random.default_rng(21)
     scheme = GotohScheme(match=2, mismatch_min=6, mismatch_max=6,
@@ -781,6 +900,7 @@ def test_wide_cigar_pass3_on_cuda(cuda):
     banded_dp.reset_launch_counts()
     got = wide_band_cigar_batch(*[x.to(cuda) for x in cpu], **kw)
     assert banded_dp.KERNELS["K5_dirs"].launches == 1
+    assert wavefront_dp.wavefront_dirs.sweep_launches == 1
     want = wide_band_cigar_batch(*cpu, **kw)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

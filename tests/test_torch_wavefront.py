@@ -177,8 +177,9 @@ def test_wavefront_walks_match_jax():
         jdirs, jres["p_end"], jres["t_end"], plan=plan, band_w=W))
     res, dirs = wavefront_dp.wavefront_dirs(*_port(arrays), **kw)
     _assert_fields(res, jres, "dirs score")
-    ops, n, ps, ts = walk_wavefront_dirs_device(dirs, res["p_end"],
-                                                res["t_end"], band_w=W)
+    ops, n, ps, ts = walk_wavefront_dirs_device(
+        dirs, res["p_end"], res["t_end"], band_w=W, lp=arrays[0].shape[1],
+        lt=arrays[2].shape[1])
     np.testing.assert_array_equal(n.numpy(), jn)
     np.testing.assert_array_equal(ps.numpy(), jps)
     np.testing.assert_array_equal(ts.numpy(), jts)
@@ -195,10 +196,42 @@ def test_wavefront_walks_match_jax():
     assert 2 in ops[0].numpy() and 3 in ops[1].numpy()  # planted indels
 
 
+def _sweep_words(twin, band_w):
+    """The twin's flags (NB, Lp, 2w+1) placed cell by cell into the sweep
+    layout (NB, S, T, 32) as uint32 words, 3 in every nibble of a slot
+    that holds no twin cell; asserts that every twin cell of a column j
+    >= 0 has a slot (those left of column 0 hold 3 in the twin)."""
+    nb, lp, band = twin.shape
+    n_strips, n_steps = wavefront_dp.flag_shape(lp, band_w)
+    assert (n_strips, n_steps) == (-(-lp // 256), 256 + 2 * band_w + 32)
+    words = np.full((nb, n_strips, n_steps, 32), 0x33333333, np.uint64)
+    for r in range(1, lp + 1):
+        p, lane, i = (r - 1) // 256, (r - 1) % 256 // 8, (r - 1) % 8
+        jbase = max(0, 256 * p + 1 - band_w) - 1
+        for k in range(band):
+            s = r + k - band_w - jbase + lane  # column j = r + k - w
+            if s < 0 and r + k - band_w < 0:
+                assert (twin[:, r - 1, k] == 3).all(), (r, k)
+                continue
+            assert 0 <= s < n_steps, (r, k)
+            nib = twin[:, r - 1, k].astype(np.uint64)
+            w = words[:, p, s, lane]
+            words[:, p, s, lane] = (w & ~np.uint64(15 << (4 * i))) | (
+                nib << np.uint64(4 * i))
+    return words.astype(np.uint32)
+
+
+def _assert_sweep_flags(dirs, twin, band_w):
+    want = _sweep_words(twin.numpy(), band_w)
+    assert dirs.dtype == torch.int32 and dirs.shape == want.shape
+    np.testing.assert_array_equal(dirs.numpy().view(np.uint32), want)
+
+
 @pytest.mark.parametrize("atype", ATYPES, ids=IDS)
 def test_wavefront_flags_equal_twin_flags(atype):
-    """The flag layout round trip: the plain flags are the twin's flags
-    moved to diagonals, 3 wherever the twin has no cell."""
+    """The flag layout round trip: every word of the plain flags (NB, S,
+    T, 32) holds the twin's flags of its 8 cells, 3 wherever the twin has
+    no cell."""
     rng = np.random.default_rng(5)
     arrays, bw = _random_batch(rng)
     from nvbio_tpu_torch.alignment.batched import banded_directions_batch
@@ -206,20 +239,54 @@ def test_wavefront_flags_equal_twin_flags(atype):
     port = _port(arrays)
     kw = dict(scheme=GotohScheme(), atype=atype, band_w=bw)
     _, dirs = wavefront_dp.wavefront_dirs(*port, **kw)
-    _, twin = banded_directions_batch(*port, **kw)
-    nb, lp, band = twin.shape
-    ndiag, db = wavefront_dp.flag_shape(lp, arrays[2].shape[1], bw)
-    assert dirs.shape == (nb, ndiag, db)
-    for d in range(ndiag):
-        for q in range(2 * db):  # slot q of diagonal d is row r, column j
-            r = q - (bw - d) // 2
-            j, k = d - r, d - 2 * r + bw
-            nib = (dirs[:, d, q >> 1].to(torch.int32) >> (4 * (q & 1))) & 15
-            if q <= bw and 1 <= r <= lp and 0 <= k < band:
-                want = twin[:, r - 1, k].to(torch.int32)
-            else:
-                want = torch.full((nb,), 3, dtype=torch.int32)
-            assert torch.equal(nib, want), (r, j)
+    _, twin = banded_directions_batch(*port, twin=True, **kw)
+    _assert_sweep_flags(dirs, twin, bw)
+
+
+@pytest.mark.parametrize("lp", [255, 256, 257])
+@pytest.mark.parametrize("atype", ATYPES, ids=IDS)
+def test_wavefront_sweep_flags_strip_edges(atype, lp):
+    """At a strip edge of the sweep layout (Lp 255 / 256 / 257), on
+    tests/_k5_band_cases' lanes and two with plen < Lp (one into the last
+    lane's 8 rows, one 13 rows short): the plain flags are the twin's cell
+    for cell, the result is the JAX kernel's, and both port walks equal
+    the JAX device walk over the JAX kernel's flags."""
+    import _k5_band_cases as k5_cases
+
+    bw, lt = 24, lp + 60
+    pats, plens, texts, tlens, quals = k5_cases.batch(lp, bw, lt, seed=lp)
+    take = [0, 1, 2, 3, 3, 3]
+    pats, texts, tlens, quals = (x[take] for x in (pats, texts, tlens,
+                                                    quals))
+    plens = np.concatenate([plens, [lp - 1, lp - 13]]).astype(np.int32)
+    arrays = (pats.astype(np.int32), plens, texts.astype(np.int32), tlens,
+              quals.astype(np.int32))
+    scheme = GotohScheme(match=2 if atype == AlignmentType.LOCAL else 0)
+    kw = dict(scheme=scheme, atype=atype, band_w=bw)
+    from nvbio_tpu_torch.alignment.batched import banded_directions_batch
+
+    res, dirs = wavefront_dp.wavefront_dirs(*_port(arrays), **kw)
+    _, twin = banded_directions_batch(*_port(arrays), twin=True, **kw)
+    _assert_sweep_flags(dirs, twin, bw)
+    jp = [jnp.asarray(a) for a in arrays]
+    jres, jdirs, plan = wavefront_dirs_pallas(*jp, interpret=True,
+                                              **_jax_kw(atype, bw, scheme))
+    _assert_fields(res, jres, "dirs result")
+    jops, jn, jps, jts = (np.asarray(x) for x in jax_walk_device(
+        jdirs, jres["p_end"], jres["t_end"], plan=plan, band_w=bw))
+    ops, n, ps, ts = walk_wavefront_dirs_device(
+        dirs, res["p_end"], res["t_end"], band_w=bw, lp=lp, lt=lt)
+    np.testing.assert_array_equal(n.numpy(), jn)
+    np.testing.assert_array_equal(ps.numpy(), jps)
+    np.testing.assert_array_equal(ts.numpy(), jts)
+    for b in range(len(n)):
+        np.testing.assert_array_equal(ops[b, :n[b]].numpy(),
+                                      jops[b, :jn[b]], err_msg=f"lane {b}")
+        ro, rl, hps, hts = walk_wavefront_dirs(dirs[b].numpy(), bw,
+                                               int(res["p_end"][b]),
+                                               int(res["t_end"][b]))
+        np.testing.assert_array_equal(np.repeat(ro, rl), jops[b, :jn[b]])
+        assert (hps, hts) == (int(jps[b]), int(jts[b]))
 
 
 def test_banded_score_long_beyond_reach_matches_jax():
