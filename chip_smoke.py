@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                   # every phase, as below
     python3 chip_smoke.py --times ROOT      # the kernel phases (3, 4, 4b,
-                                            # 9, 10, 10b, 14) on ROOT's
+                                            # 4c, 9, 10, 10b, 14) on ROOT's
                                             # package
     python3 chip_smoke.py --turns PARENT    # --times on PARENT and on this
                                             # checkout in turns (parent,
@@ -49,6 +49,14 @@ failure:
    and the block shape with the warps an SM the call keeps resident
    (occupancy(): sm_90's rules over the ptxas registers and shared
    bytes);
+4c. K4's score tier past 128 cells at the PE --local rescue's call
+   (1 024 x 128, Lt 1 188, band_w 530, rescue_wide_inputs), LOCAL (row
+   K4_wide) and SEMI_GLOBAL (row K4_wide_semi), and at the same call on
+   150 bp mates (1 024 x 160, Lt 1 220, LOCAL, row K4_wide_150), each
+   call asserted to take wide_plan's tier (the column sweep, at 4 and 8
+   rows a lane) as the kernel library reports it, against the plain
+   version bit for bit; times queued and as issued, bound, block shape
+   and warps an SM;
 5. the wide-band repair: K1-, K2- and K3-shaped calls at band_w = 63
    (Lp = 128, NB = 32767) launch K4 and equal the plain versions;
 6. the golden dataset through build_index + map_reads --device cuda:
@@ -146,8 +154,8 @@ failure:
    over the same reads (K2 over 8 x 4096 winners; 1024 reads under both
    devices; a planted duplicate whose every read reports both loci,
    secondaries with FLAG 0x100); PE --local over 4 batches of phase
-   16's pairs (K4 at the window-wide rescue band, band_w 530; 128 pairs
-   under both devices);
+   16's pairs (K4 at the window-wide rescue band, band_w 530, every
+   launch asserted on the column sweep; 128 pairs under both devices);
 21. map_reads' input and output options on the same index (after the
    paired-end phases, whose pairs it reuses): the short-read run's first
    20 480 reads rewritten as Phred+64 through --phred64 --un (gzip) --al
@@ -226,10 +234,12 @@ failure:
    settings (@PG masked); attach seconds, reads/s and pairs/s.
 
 The last line is {"ok": true, "device": {...}}; the line before it
-lists the ported kernels (K1-K7, K5 as its score, its flag and its
-matrix-score entry points, the last also as its full-band tier) as
-JSON, with the launches of the path that runs each (K2, K3: the
-short-read run; K4: the long-read run; K1, K5, K6: sw_benchmark; K5 with
+lists the ported kernels (K1-K7, K4 also as its score tier past 128
+cells, K4_wide, K5 as its score, its flag and its matrix-score entry
+points, the last also as its full-band tier) as JSON, with the launches
+of the path that runs each (K2, K3: the short-read run; K4: the
+long-read run; K4_wide: the PE --local run's launches on the sweep;
+K1, K5, K6: sw_benchmark; K5 with
 flags: the pass-3 run; K7: the int16 opt-in phase; K5_matrix and
 K5_matrix_full: the protein_sw run; the modes' runs must launch theirs
 too), the time
@@ -279,6 +289,12 @@ BENCH_NB, BENCH_LP = 2_097_152, 100  # bench.py:43-56
 # the long-read path: 1024-read chunks of 2 kb reads (bucketed to 2016)
 # at --band 63; their extension batch is 2 * 1024 * 16 * 0.25 lanes
 LONG_NB, LONG_DIRS_NB, LONG_LP, LONG_W = 8_192, 1_024, 2_016, 63
+# K4's score tier past 128 cells at the PE --local rescue's call
+# (paired._rescue with no chunk plan: 1 024 mates, 100 bp bucketed to 128
+# rows, band_w = maxins + 2 * band_w = 530, Lt = 128 + 2 * 530), and on
+# 150 bp mates (bucketed to 160 rows: the sweep at 8 rows a lane)
+K4W_NB, K4W_LP, K4W_W = 1_024, 128, 530
+K4W_LP150 = 160
 N_LONG, LONG_LEN, LONG_CPU = 20_000, 2_000, 128
 # sw_benchmark's wide batch (nvbio_tpu/tools/sw_benchmark.py:153-162):
 # 128 lanes of 4000 bp at band_w 2000; K5's flags are checked on 8
@@ -393,6 +409,9 @@ K5_DIRS_BUILD = []
 #: k7_ptxas of the build (empty for a cached build or a package without
 #: K7's group kernel)
 K7_BUILD = []
+#: k4_sweep_ptxas of the build (empty for a cached build or a package
+#: without K4's sweep)
+K4_SWEEP_BUILD = []
 
 
 def bound(ops, nbytes, per_lane=1):
@@ -522,6 +541,16 @@ def phase_build():
                 f"{t.get('spill_loads')} B; {t['warps_per_sm']} warps an SM "
                 f"resident at {nb} x {lp}")
         K5_DIRS_BUILD[:] = dirs
+        sweep = k4_sweep_ptxas(_build.build_info.get("ptxas_by_source", {})
+                               .get("long_gotoh.cu", ""))
+        for t in sweep:
+            log(f"[build] K4 sweep, {t['rpl']} rows a lane, "
+                f"{['GLOBAL', 'SEMI_GLOBAL', 'LOCAL'][t['atype']]}"
+                f"{', packed' if t['packed'] else ''}"
+                f"{'' if t['byte_table'] else ', generic scores'}: "
+                f"{t.get('registers')} registers, spill stores "
+                f"{t.get('spill_stores')} B, loads {t.get('spill_loads')} B")
+        K4_SWEEP_BUILD[:] = sweep
         K7_BUILD[:] = k7_ptxas(_build.build_info.get("ptxas_by_source", {})
                                .get("banded_gotoh16.cu", ""))
         for t in K7_BUILD:
@@ -533,6 +562,34 @@ def phase_build():
                 f"spill stores {t.get('spill_stores')} B, loads "
                 f"{t.get('spill_loads')} B")
     return secs, tiers
+
+
+def k4_sweep_ptxas(text):
+    """Registers and spills of each instantiation of K4's column sweep
+    (k4_sweep_kernel<R, ATYPE, PACKED, LUT>) from nvcc's ptxas report of
+    long_gotoh.cu."""
+    import re
+
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            g = re.search(r"k4_sweep_kernelILi(\d+)ELi(\d)ELb([01])"
+                          r"ELb([01])E", m.group(1))
+            cur = None if not g else {
+                "rpl": int(g[1]), "atype": int(g[2]),
+                "packed": g[3] == "1", "byte_table": g[4] == "1"}
+            if cur:
+                out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    return out
 
 
 def k7_ptxas(text):
@@ -953,6 +1010,143 @@ def phase_k4(torch, np):
             f"{dbms:.4f} ms ({dby}), share {dbms / dms:.3f} (yardstick "
             f"{dyard / dms:.3f})")
     out["max_abs_err"] = worst
+    return out
+
+
+def rescue_wide_inputs(np, nb, lp, band_w, genome, rng, mate=100):
+    """The PE --local rescue's window-wide call: ``mate``-bp mates (10
+    shorter on a few lanes, zero-length lanes too) bucketed to lp rows,
+    planted with 2 % substitutions (N among them) at an insert-like offset
+    anywhere the band reaches in their lp + 2 * band_w windows, every
+    eighth a random read (no place); windows clamped at the genome's end
+    on a few lanes (the rescue's tlen spread: Lt, less at the end)."""
+    n = len(genome)
+    lt = lp + 2 * band_w
+    ws = rng.integers(0, n - lt, nb)
+    ws[:4] = [n - 1, n - 150, n - lt // 2, n - lt + 40]
+    gpad = np.concatenate([genome, np.full(lt + 16, 7, np.int8)])
+    texts = gpad[ws[:, None] + np.arange(lt)]
+    plens = np.full(nb, mate, np.int32)
+    plens[::16] = rng.integers(mate - 10, mate + 1, len(plens[::16]))
+    plens[4:6] = 0
+    off = rng.integers(0, 2 * band_w + 1, nb)
+    pats = gpad[np.minimum((ws + off)[:, None] + np.arange(lp),
+                           len(gpad) - 1)]
+    pats[::8] = rng.integers(0, 4, (len(pats[::8]), lp))
+    pats = np.where(pats == 7, rng.integers(0, 4, pats.shape), pats)
+    mut = rng.random(pats.shape) < 0.02
+    pats[mut] = rng.integers(0, 5, int(mut.sum()))
+    pats = np.where(np.arange(lp)[None, :] < plens[:, None], pats, 7)
+    quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
+    tlens = np.clip(n - ws, 0, lt).astype(np.int32)
+    return (pats.astype(np.int8), plens, texts.astype(np.int8), tlens,
+            quals)
+
+
+def sweep_occupancy(nb, lp, band_w, atype):
+    """The tier wide_plan gives a score-only K4 call of this shape and,
+    on the sweep, its rows a lane, warps (alignments) a block, the
+    registers of its instantiation for ``atype`` over symbol windows with
+    the byte table (phase 2), the warps an SM it keeps resident (C entry
+    k4_sweep_warps_per_sm) and those this call's grid fills; None for a
+    package without the plan (the parent of a --turns run)."""
+    from nvbio_tpu_torch.ops import _build, long_dp
+
+    if not hasattr(long_dp, "wide_plan"):
+        return None
+    tier, rpl, warps = long_dp.wide_plan(lp, band_w)
+    out = {"tier": ["group", "sweep", "block"][tier]}
+    if tier != long_dp.SWEEP:
+        return out
+    per_sm = _build.library().k4_sweep_warps_per_sm(lp, band_w, atype.value)
+    grid = -(-nb // warps)
+    match = [t for t in K4_SWEEP_BUILD if (t["rpl"], t["atype"], t["packed"],
+                                           t["byte_table"])
+             == (rpl, atype.value, False, True)]
+    return dict(out, rows_per_lane=rpl, warps_per_block=warps, grid=grid,
+                registers=match[0].get("registers") if match else None,
+                warps_per_sm=per_sm,
+                warps_per_sm_achieved=min(per_sm,
+                                          -(-grid // N_SMS) * warps))
+
+
+def phase_k4_wide(torch, np):
+    """K4's score tier past 128 cells at the PE --local rescue's call
+    (K4W_*, rescue_wide_inputs): LOCAL (row K4_wide) and SEMI_GLOBAL (row
+    K4_wide_semi) on 100 bp mates, LOCAL on 150 bp mates (row
+    K4_wide_150, Lp K4W_LP150), against the plain version bit for bit,
+    each call asserted to take wide_plan's tier (the sweep) as the kernel
+    library reports it; CUDA-event times queued and as issued, bound,
+    block shape and warps an SM."""
+    from nvbio_tpu_torch.alignment.batched import banded_score_batch
+    from nvbio_tpu_torch.alignment.types import AlignmentType, GotohScheme
+    from nvbio_tpu_torch.ops import banded_dp, long_dp
+
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(SEED + 21)
+    genome = rng.integers(0, 4, 4_000_000).astype(np.int8)
+    inputs = {}
+    keys = ("score", "p_end", "t_end")
+    out = {}
+    for name, atype, scheme, lp, mate in (
+            ("K4_wide", AlignmentType.LOCAL, GotohScheme(match=2), K4W_LP,
+             100),
+            ("K4_wide_semi", AlignmentType.SEMI_GLOBAL, GotohScheme(),
+             K4W_LP, 100),
+            ("K4_wide_150", AlignmentType.LOCAL, GotohScheme(match=2),
+             K4W_LP150, 150)):
+        if lp not in inputs:
+            inputs[lp] = tuple(torch.from_numpy(a).to(dev)
+                               for a in rescue_wide_inputs(
+                                   np, K4W_NB, lp, K4W_W, genome, rng,
+                                   mate))
+        args = inputs[lp]
+        plens, tlens = args[1], args[3]
+        plan = (long_dp.wide_plan(lp, K4W_W)
+                if hasattr(long_dp, "wide_plan") else None)
+        cells = band_cells(torch, plens, tlens, K4W_W)
+        kw = dict(scheme=scheme, atype=atype, band_w=K4W_W)
+
+        def kern():
+            return banded_dp.banded_score(*args, **kw)
+
+        def plain():
+            return banded_score_batch(*args, **kw)
+
+        banded_dp.reset_launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        sweeps = getattr(long_dp.launch, "sweep_launches", None)
+        if long_dp.launch.launches != 1 or (
+                plan and sweeps != int(plan[0] == long_dp.SWEEP)):
+            fail(f"{name}: K4 launches {long_dp.launch.launches}, on the "
+                 f"sweep {sweeps}, plan {plan}")
+        want = plain()
+        err = max_abs_err(torch, [got[k] for k in keys],
+                          [want[k] for k in keys])
+        n_ok = int((want["score"] > (0 if atype == AlignmentType.LOCAL
+                                     else -(1 << 29))).sum())
+        if err or n_ok < K4W_NB // 2:
+            fail(f"{name}: max_abs_err {err}, {n_ok} of {K4W_NB} lanes "
+                 "placed")
+        ms = cuda_ms(torch, kern, 20)
+        launch_ms = cuda_ms(torch, kern, 20, queued=False)
+        pms = cuda_ms(torch, plain, 1)
+        bms, by, yard = gotoh_bound(cells, dp_bytes(*args,
+                                                    out_bytes=12 * K4W_NB))
+        occ = sweep_occupancy(K4W_NB, lp, K4W_W, atype)
+        out[name] = {"shape": [K4W_NB, lp, args[2].shape[1]],
+                     "band_w": K4W_W, "atype": atype.name, "mate": mate,
+                     "ms": ms, "launch_ms": launch_ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by, "yard_bound_ms": yard,
+                     "cells": cells, "gcups": cells / ms / 1e6,
+                     "placed": n_ok, "max_abs_err": err, "occupancy": occ}
+        log(f"[k4_wide] {name}: {atype.name} {K4W_NB} x {lp} (Lt "
+            f"{args[2].shape[1]}, {mate} bp mates), band_w {K4W_W}, {n_ok} "
+            f"lanes placed: bit-identical to the plain version; {ms:.4f} ms"
+            f" queued, {launch_ms:.4f} ms as issued "
+            f"({cells / ms / 1e6:.1f} GCUPS), bound {bms:.4f} ms ({by}), "
+            f"share {bms / ms:.3f}, plain {pms:.2f} ms; {occ}")
     return out
 
 
@@ -3279,8 +3473,10 @@ def phase_mem_qmap(torch, np, sim):
 def phase_pe_local(torch, np):
     """--local on N_PE_LOCAL pairs of the paired-end run (its 5 % with
     mate 2's seeds broken included): the rescue is one window-wide band
-    (band_w = maxins + 2 * 15 = 530), K4 on the card."""
+    (band_w = maxins + 2 * 15 = 530), K4 on the card, every launch of it
+    on the column sweep (wide_plan's tier)."""
     from nvbio_tpu_torch.models import paired as P
+    from nvbio_tpu_torch.ops import long_dp
 
     t_phase = time.perf_counter()
     d = os.path.join(WORK, "chr20len")
@@ -3291,6 +3487,7 @@ def phase_pe_local(torch, np):
     launches, stats, calls, kept = mode_run(
         torch, f"{d}/g.npz", ["-1", f"{d}/pel1.fq", "-2", f"{d}/pel2.fq"],
         f"{d}/pel.sam", ["--local"], wraps=((P, "banded_score", "K4"),))
+    sweeps = long_dp.launch.sweep_launches
     shapes = sorted({c[:4] for c in calls["K4"]})
     log(f"[pe_local] map_reads -1/-2 --local --device cuda --batch 4096: "
         f"{N_PE_LOCAL} pairs in {stats['map_s']:.2f}s = "
@@ -3305,13 +3502,20 @@ def phase_pe_local(torch, np):
             or shapes != [(1024, LP, LP + 2 * 530, 530)]):
         fail(f"PE --local: rescued {stats['rescued']}, proper "
              f"{stats['proper_pairs']}, rescue calls {shapes}")
+    # the rescue's window-wide calls take K4's column sweep, by the plan
+    if (long_dp.wide_plan(LP, 530)[0] != long_dp.SWEEP
+            or sweeps != launches["K4"]):
+        fail(f"PE --local: {sweeps} of {launches['K4']} K4 launches on the "
+             f"sweep (plan {long_dp.wide_plan(LP, 530)})")
+    log(f"[pe_local] all {sweeps} K4 launches on the column sweep "
+        f"(wide_plan {long_dp.wide_plan(LP, 530)})")
     same_sam(f"{d}/g.npz", ["-1", f"{d}/pe1_cpu.fq", "-2", f"{d}/pe2_cpu.fq"],
              f"{d}/pel_sub.sam", ["--local"], PE_CPU, "pe_local")
     rows = {"K4_local_rescue": hold_call(torch, "pe_local", "K4", kept["K4"])}
     secs = time.perf_counter() - t_phase
     log(f"[pe_local] phase {secs:.1f}s")
-    return {"launches": launches, "stats": stats, "rescue_calls": shapes,
-            "rows": rows, "seconds": secs}
+    return {"launches": launches, "sweep_launches": sweeps, "stats": stats,
+            "rescue_calls": shapes, "rows": rows, "seconds": secs}
 
 
 def head_fastq(src, dst, n, qual_shift=0):
@@ -4562,7 +4766,7 @@ def phase_bwa(torch, np):
 
 
 def kernel_phases(torch, np, result, only=None):
-    """The kernel phases (3, 4, 4b, 9, 10, K1 at bench.py's shape, 14)
+    """The kernel phases (3, 4, 4b, 4c, 9, 10, K1 at bench.py's shape, 14)
     into ``result``: every kernel against its plain version, timed.  With
     ``only`` (row names of timed_rows), just the phases that give them."""
     def run(*rows):
@@ -4573,6 +4777,8 @@ def kernel_phases(torch, np, result, only=None):
         k.update(phase_kernels(torch, np))
     if run("K4", "K4_dirs"):
         k["K4"] = phase_k4(torch, np)
+    if run("K4_wide", "K4_wide_semi", "K4_wide_150"):
+        k.update(phase_k4_wide(torch, np))
     result["path_shapes"] = (phase_path_shapes(torch, np)
                              if run("K2_path", "K3_path", "K4_rescue")
                              else {})
@@ -4600,8 +4806,10 @@ def timed_rows(result):
     the group kernel's block shape for the K1-K4 rows; logged one a
     line."""
     k, ps, bk = result["kernels"], result["path_shapes"], result["bench_k1"]
-    rows = {n: k[n] for n in ("K1", "K2", "K3", "K4", "K5", "K5_dirs", "K6",
-                              "K5_matrix", "K5_matrix_full") if n in k}
+    rows = {n: k[n] for n in ("K1", "K2", "K3", "K4", "K4_wide",
+                              "K4_wide_semi", "K4_wide_150", "K5",
+                              "K5_dirs", "K6", "K5_matrix",
+                              "K5_matrix_full") if n in k}
     rows.update(bk)
     if "K4" in k:
         k4 = k["K4"]
@@ -4622,6 +4830,8 @@ def timed_rows(result):
            "K4": occupancy("K4", LONG_W, LONG_NB, False),
            "K4_dirs": occupancy("K4", LONG_W, LONG_DIRS_NB, True)}
     occ.update({n: r["occupancy"] for n, r in ps.items()})
+    occ.update({n: k[n]["occupancy"] for n in ("K4_wide", "K4_wide_semi",
+                                                "K4_wide_150") if n in k})
     occ.update({n: k[n]["occupancy"] for n in ("K5_matrix", "K5_matrix_full",
                                                 "K5_dirs")
                 if n in k and "occupancy" in k[n]})
@@ -4797,13 +5007,16 @@ def main():
              "-N 1 run": result["n1"]["launches"],
              "-a run": result["all"]["launches"],
              "PE --local run": result["pe_local"]["launches"],
+             "PE --local run (sweep)": {
+                 "K4_wide": result["pe_local"]["sweep_launches"]},
              "flagged SE run": result["io_flags"]["launches"],
              "flagged PE run": result["io_flags"]["pe_launches"],
              "protein_sw run": result["protein"]["launches"]}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # the kernel symbol each row times, in its source
-    symbols = {"K5": "k5_band_kernel", "K5_dirs": "k5_band_dirs_kernel",
+    symbols = {"K4_wide": "k4_sweep_kernel",
+               "K5": "k5_band_kernel", "K5_dirs": "k5_band_dirs_kernel",
                "K7": "k7_group_kernel",
                "K5_matrix": "k5_full_kernel",
                "K5_matrix_full": "k5_full_kernel"}
@@ -4817,6 +5030,8 @@ def main():
              "short-read run"),
             ("K4", "long_gotoh.cu", "nvbio_tpu/ops/long_dp.py:218",
              "long-read run"),
+            ("K4_wide", "long_gotoh.cu", "nvbio_tpu/ops/long_dp.py:218",
+             "PE --local run (sweep)"),
             ("K5", "wavefront_gotoh.cu", "nvbio_tpu/ops/wavefront_dp.py:349",
              "sw_benchmark --long"),
             ("K5_dirs", "wavefront_gotoh.cu",

@@ -1,44 +1,51 @@
 #!/usr/bin/env python3
-"""Instructions a step of the step loops of K5's banded column-sweep tier
-(``k5_band_kernel``), read from the SASS of the kernel library.
+"""Instructions a step of the step loops of a column-sweep kernel, read
+from the SASS of the kernel library: by default K5's banded tier
+(``k5_band_kernel``), or any kernel whose mangled name contains
+``--kernel``'s text (K4's sweep: ``k4_sweep_kernelILi4ELi1ELb0ELb1E``,
+4 rows a lane, SEMI_GLOBAL, symbol windows, byte table).
 
     python3 k5_band_sass.py     # on a machine with nvcc and cuobjdump
+    python3 k5_band_sass.py --kernel k4_sweep_kernelILi4ELi1ELb0ELb1E \
+        [--root DIR]            # DIR/nvbio_tpu_torch instead of this one
 
 Builds the kernels from nvbio_tpu_torch/ops/csrc (or reuses the build),
 disassembles the library with cuobjdump and, for the SEMI_GLOBAL 16-warp
-instantiation (``k5_band_kernel<1, 16>``, sw_benchmark's shape), counts
-the instructions of each innermost loop that shuffles H and F up a lane
-over the steps it runs.  Prints one JSON line: the loops' instructions a
-step in ascending order (the smallest is the mask-free body of the
-strips without a sink).  Needs no card.
+instantiation (``k5_band_kernel<1, 16>``, sw_benchmark's shape) or the
+named kernel, counts the instructions of each innermost loop that
+shuffles H and F up a lane over the steps it runs.  Prints one JSON
+line: the loops' instructions a step in ascending order (the smallest is
+the mask-free body of the strips without a sink).  Needs no card.
 """
 
+import argparse
 import json
 import os
 import re
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-from nvbio_tpu_torch.ops import _build  # noqa: E402
+K5_BAND = "k5_band_kernelILi1ELi16E"
 
 
-def k5_band_sass(lib_path):
+def k5_band_sass(lib_path, kernel=K5_BAND):
     """Instructions a step of each step loop of the banded tier's
     SEMI_GLOBAL 16-warp kernel (k5_band_kernel<1, 16>), in ascending
     order, from cuobjdump's SASS of the kernel library: an innermost loop
     (a backward branch with no other inside it) whose body shuffles H and
     F up a lane (two SHFL.UP a step), its instructions over its steps;
-    the smallest is the body of the strips without a sink.  None without
+    the smallest is the body of the strips without a sink.  ``kernel``:
+    the text of the mangled name to take instead.  None without
     cuobjdump beside nvcc or without the kernel."""
+    from nvbio_tpu_torch.ops import _build
+
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=600).stdout
     for part in re.split(r"\n\s*Function : ", sass):
-        if "k5_band_kernelILi1ELi16E" not in part.split("\n", 1)[0]:
+        if kernel not in part.split("\n", 1)[0]:
             continue
         ins = [(int(m[1], 16), m[2]) for m in
                (re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
@@ -59,11 +66,19 @@ def k5_band_sass(lib_path):
 
 
 def main():
-    steps = k5_band_sass(_build.build())
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", default=K5_BAND)
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    from nvbio_tpu_torch.ops import _build
+
+    steps = k5_band_sass(_build.build(), args.kernel)
     if not steps:
-        sys.exit("k5_band_sass.py: no cuobjdump beside nvcc, or no "
-                 "k5_band_kernel<1, 16> in the library")
-    print(json.dumps({"k5_band_kernel<1,16> instructions a step":
+        sys.exit(f"k5_band_sass.py: no cuobjdump beside nvcc, or no "
+                 f"{args.kernel} in the library")
+    print(json.dumps({f"{args.kernel} instructions a step":
                       [round(n, 2) for n in steps]}))
 
 

@@ -50,13 +50,14 @@ _SIGNATURES = {
     # pats, quals, plens, texts, tlens, nb, lp, lt, band_w, atype,
     # scheme..., out, stream
     "k1_banded_score": _SCORE,
-    "k4_long_score": _SCORE,
+    # K4's score: the same, plus a host int after out (the tier taken)
+    "k4_long_score": _SCORE[:-1] + [_P, _P],
     # K5's formula score on the banded column-sweep tier (no scratch)
     "k5_band_score": _SCORE,
     # pats, quals, plens, gwords, n_words, win_start, tlens, nb, lp,
     # band_w, atype, scheme..., out, stream
     "k3_banded_score_packed": _PACKED,
-    "k4_long_score_packed": _PACKED,
+    "k4_long_score_packed": _PACKED[:-1] + [_P, _P],  # the same: tier
     # as the score entry points, plus dirs before the stream
     "k2_banded_directions": _DIRS,
     "k4_long_directions": _DIRS,
@@ -89,6 +90,10 @@ _SIZES = {
     # nb, lp, plan (2 ints: blocks a cluster, warps a block): a
     # cudaError_t
     "k5_band_dirs_plan": ([_I] * 2 + [_P], ctypes.c_int),
+    # lp, band_w, plan (3 ints: tier, rows a lane, warps a block): a
+    # cudaError_t
+    "k4_wide_plan": ([_I] * 2 + [_P], ctypes.c_int),
+    "k4_sweep_warps_per_sm": ([_I] * 3, ctypes.c_int),  # lp, band_w, atype
     "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
     # nb, lp, band_w, k_lo, match, mm_min, mm_max, n_penalty, plan (6
     # ints): a cudaError_t

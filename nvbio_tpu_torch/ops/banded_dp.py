@@ -339,6 +339,7 @@ def reset_launch_counts() -> None:
     wavefront_dp.wavefront_score_matrix.full_launches = 0
     wavefront_dp.wavefront_score.sweep_launches = 0
     wavefront_dp.wavefront_dirs.sweep_launches = 0
+    long_dp.launch.sweep_launches = 0
 
 
 reset_launch_counts()

@@ -2,18 +2,26 @@
 
 Port of ``nvbio_tpu/ops/long_dp.py`` (``banded_score_long_pallas``
 ``:323``, ``banded_directions_long_pallas`` ``:354``, both through
-``_long_call``).  The kernel is ``csrc/long_gotoh.cu`` (built by
-``_build.py`` at first use), the band across threads and every row in a
-loop: for bands up to 128 cells (every K4 call of ``map_reads``) a
-sub-warp group of lanes an alignment (the tier ``with_tier`` picks by band
-and flags), several alignments a block (``csrc/group_gotoh.cuh``, shared
-with K2); wider bands one block an alignment.
+``_long_call``).  The kernels are in ``csrc/long_gotoh.cu`` (built by
+``_build.py`` at first use), in three tiers that ``wide_plan`` picks
+(the C entry ``k4_wide_plan`` is the same table; the launch plans in C
+and reports the tier it took): bands up to 128 cells (every K4 call of
+``map_reads``) the sub-warp group kernel of ``csrc/group_gotoh.cuh`` (a
+group of lanes an alignment, its ``with_tier`` by band and flags,
+several alignments a block, shared with K2); wider score-only bands at
+Lp <= 256 the column sweep, one warp an alignment, lanes on pattern rows
+(4 rows a lane to Lp 128, the PE ``--local`` rescue's window-wide band,
+1 024 x 128 at band_w 530; 8 past it, the same call on 150 bp mates);
+the rest (flags past 128 cells, longer patterns) one block an
+alignment, the band across its threads.
 
 K4's plain versions are ``alignment/batched.py`` ``banded_score_batch``
 and ``banded_directions_batch``: the TPU kernel is bit-identical to them
 by contract (``long_dp.py:330``), and so is the CUDA kernel.  The wrappers
 take them for tensors on the CPU, and only then; for CUDA tensors they
-launch the kernel or raise.  ``launch.launches`` counts K4's launches.
+launch the kernel or raise.  ``launch.launches`` counts K4's launches,
+``launch.sweep_launches`` those that the kernel library reports on the
+sweep.
 
 Reach follows the JAX package: score-only serves ``band_w <= 971`` (the
 row-blocked kernel's VMEM budget at ``row_block = 256``); wider bands go
@@ -29,6 +37,8 @@ takes with ``STRIDE = 2w+1``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..alignment.batched import (SCORE_FLOOR, banded_directions_batch,
@@ -38,6 +48,42 @@ from . import _launch, wavefront_dp
 
 #: widest band (2 * band_w + 1) the kernel is instantiated for
 MAX_BAND = 2048
+#: K4's tiers, as ``wide_plan`` gives them
+GROUP, SWEEP, BLOCK = 0, 1, 2
+#: widest band of the group kernel (``group_gotoh.cuh`` MAX_CELLS)
+GROUP_CELLS = 128
+#: the sweep's pattern rows a lane: SWEEP_RPL to 32 of them, at most
+#: SWEEP_MAX_RPL (Lp <= 32 * SWEEP_MAX_RPL)
+SWEEP_RPL, SWEEP_MAX_RPL = 4, 8
+#: warps (alignments) a block of the sweep
+SWEEP_WARPS = 8
+
+
+def wide_plan(lp: int, band_w: int):
+    """The tier a score-only K4 call of this shape launches on CUDA,
+    ``(tier, rows a lane, warps a block)`` (rows and warps 0 off the
+    sweep), as ``csrc/long_gotoh.cu`` ``wide_plan`` (C entry
+    ``k4_wide_plan``) decides it, by turns on an H100 (PERF.md):
+
+    - bands up to GROUP_CELLS cells: the group kernel;
+    - wider bands at Lp <= 256: the column sweep, one warp an alignment
+      and SWEEP_WARPS alignments a block, 4 rows a lane to Lp 128 and 8
+      past it;
+    - elsewhere the block kernel.
+
+    Symbol and packed windows take the same tiers; flags take the group
+    and block tiers by band alone.  Raises ValueError past MAX_BAND."""
+    band = 2 * band_w + 1
+    if band_w < 0 or band > MAX_BAND:
+        raise ValueError(
+            f"band_w={band_w}: the K4 kernel is instantiated for bands up "
+            f"to {MAX_BAND} cells (band_w <= {(MAX_BAND - 1) // 2})")
+    if band <= GROUP_CELLS:
+        return GROUP, 0, 0
+    if lp <= 32 * SWEEP_MAX_RPL:
+        return (SWEEP, SWEEP_RPL if lp <= 32 * SWEEP_RPL else SWEEP_MAX_RPL,
+                SWEEP_WARPS)
+    return BLOCK, 0, 0
 
 
 def _band_fits(band_w: int, row_block: int, with_dirs: bool) -> bool:
@@ -106,22 +152,21 @@ def launch(patterns, plens, tlens, quals=None, *, texts=None, packed=None,
     or, score-only, over windows ``[win_start, win_start + tlen)`` of the
     2-bit ``packed`` genome.  Returns the result dict, and with
     ``with_dirs`` also dirs (NB, Lp, 2 * band_w + 1) uint8."""
-    if band_w < 0 or 2 * band_w + 1 > MAX_BAND:
-        raise ValueError(
-            f"band_w={band_w}: the K4 kernel is instantiated for bands up "
-            f"to {MAX_BAND} cells (band_w <= {(MAX_BAND - 1) // 2})")
+    wide_plan(patterns.shape[1], band_w)  # raises past the widest band
     pats, qual, pl, tl, out = _launch.stage_inputs(patterns, plens, tlens,
                                                    quals)
     nb, lp = pats.shape
     sargs = _launch.scheme_args(scheme, atype)
     dev = pats.device
     dirs = None
+    tier = ctypes.c_int(-1)  # the score entries write the tier they took
     if packed is not None:
         gw, ws = _launch.stage_packed(packed, win_start, nb)
         _launch.call(
             "k4_long_score_packed", dev, pats.data_ptr(), qual.data_ptr(),
             pl.data_ptr(), gw.data_ptr(), gw.numel(), ws.data_ptr(),
-            tl.data_ptr(), nb, lp, band_w, *sargs, out.data_ptr())
+            tl.data_ptr(), nb, lp, band_w, *sargs, out.data_ptr(),
+            ctypes.addressof(tier))
     else:
         tx = _launch.stage_texts(texts, nb)
         args = (pats.data_ptr(), qual.data_ptr(), pl.data_ptr(),
@@ -132,13 +177,16 @@ def launch(patterns, plens, tlens, quals=None, *, texts=None, packed=None,
                                device=dev)
             _launch.call("k4_long_directions", dev, *args, dirs.data_ptr())
         else:
-            _launch.call("k4_long_score", dev, *args)
+            _launch.call("k4_long_score", dev, *args, ctypes.addressof(tier))
     launch.launches += 1
+    if tier.value == SWEEP:
+        launch.sweep_launches += 1
     res = _launch.result(out)
     return (res, dirs) if with_dirs else res
 
 
 launch.launches = 0
+launch.sweep_launches = 0
 
 
 def banded_score_long(patterns, plens, texts, tlens, quals=None, *,

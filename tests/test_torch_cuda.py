@@ -956,12 +956,14 @@ def _rescue_inputs(seed, nb, lp, band_w):
                          ids=["local", "semi_global"])
 def test_k4_at_the_local_rescue_band(cuda, atype):
     """K4 at PE --local's rescue call (paired._rescue with no chunk plan:
-    band_w = maxins + 2 * 15 = 530, 1 061 cells, Lp 128, Lt 1 188), the
-    block-per-alignment tier, against its plain version (the twin the
-    reference's rescue runs) bit for bit; SEMI_GLOBAL too (a score-min
-    too permissive for the chunk plan takes the same band)."""
+    band_w = maxins + 2 * 15 = 530, 1 061 cells, Lp 128, Lt 1 188), on
+    the column sweep (wide_plan's tier), against its plain version (the
+    twin the reference's rescue runs) bit for bit; SEMI_GLOBAL too (a
+    score-min too permissive for the chunk plan takes the same band)."""
     lp, band_w = 128, 530
     assert banded_dp.route(lp, band_w, False) == "K4"
+    assert long_dp.wide_plan(lp, band_w) == (long_dp.SWEEP, 4,
+                                             long_dp.SWEEP_WARPS)
     scheme = GotohScheme(match=2) if atype == AlignmentType.LOCAL else \
         GotohScheme()
     kw = dict(scheme=scheme, atype=atype, band_w=band_w)
@@ -970,11 +972,163 @@ def test_k4_at_the_local_rescue_band(cuda, atype):
     got = banded_dp.banded_score(*[a.to(cuda) for a in cpu], **kw)
     torch.cuda.synchronize()
     assert long_dp.launch.launches == 1
+    assert long_dp.launch.sweep_launches == 1
     want = banded_score_batch(*cpu, **kw)
     placed = want["score"] > (0 if atype == AlignmentType.LOCAL else -100)
     assert placed.float().mean() > 0.5  # most lanes have their pattern
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _sweep_inputs(seed, nb, lp, band_w, lt, atype):
+    """Windows of a random genome with patterns planted at a start the
+    band reaches, 4 % substitutions and N in patterns and texts, ragged
+    pattern and window lengths (windows clamped below Lt), and the sweep's
+    edge lanes: zero-length and one-row patterns, plen > Lp, an empty
+    window, a window past Lt, an unreachable lane (plen > tlen + w, where
+    Lp allows it), a GLOBAL goal outside the band; for GLOBAL most
+    window lengths near the pattern's, so that the goal has a path."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 50_000).astype(np.int8)
+    ws = rng.integers(0, len(genome) - lt - lp, nb)
+    texts = genome[ws[:, None] + np.arange(lt)]
+    off = rng.integers(0, min(band_w, lt) + 1, nb)
+    pats = genome[(ws + off)[:, None] + np.arange(lp)]
+    mut = rng.random(pats.shape) < 0.04
+    pats[mut] = rng.integers(0, 5, int(mut.sum()))
+    texts = texts.copy()
+    texts[rng.random(texts.shape) < 0.01] = 4
+    plens = rng.integers(max(lp * 3 // 4, 1), lp + 1, nb).astype(np.int32)
+    tlens = rng.integers(lt // 2, lt + 1, nb).astype(np.int32)
+    if atype == AlignmentType.GLOBAL:
+        tlens = np.clip(plens + rng.integers(-band_w, band_w + 1, nb), 0,
+                        lt).astype(np.int32)
+    plens[0], plens[1], plens[2] = 0, min(lp, 1), lp + 5
+    tlens[3], tlens[4] = 0, lt + 9
+    plens[5] = lp
+    tlens[5] = max(lp - band_w - 2, 0)  # unreachable where lp > w + 2
+    tlens[6] = min(plens[6] + band_w + 3, 4 * lt)  # goal outside the band
+    quals = rng.integers(0, 42, (nb, lp)).astype(np.uint8)
+    return (pats.astype(np.int8), plens, texts.astype(np.int8), tlens,
+            quals, ws.astype(np.int64), genome)
+
+
+#: (Lp, band_w) of the sweep's cases: the first band past the group
+#: kernel (129 cells), unreachable lanes (Lp > w + 2), one lane with
+#: rows, ragged last lanes, the rescue's band, the widest band; 8 rows a
+#: lane (Lp 129-256, the rescue's band on 150 bp mates at Lp 160)
+_SWEEP_CASES = [(128, 64), (100, 65), (1, 70), (33, 100), (128, 530),
+                (90, 971), (129, 64), (160, 530), (200, 150), (256, 971)]
+#: scores past a signed byte on each
+_SWEEP_RUNS = [(lp, w, big) for lp, w in _SWEEP_CASES
+               for big in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "lp,band_w,big", _SWEEP_RUNS,
+    ids=[f"lp{a}_w{b}{'_big' if c else ''}" for a, b, c in _SWEEP_RUNS])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k4_sweep_matches_plain(cuda, atype, lp, band_w, big):
+    """K4's column sweep (score-only past 128 cells at Lp <= 256: one
+    warp an alignment, 4 rows a lane to Lp 128 and 8 past it, wide_plan)
+    over symbol and packed windows, bit for bit against the plain
+    version, at its edge lanes (_sweep_inputs), with scores in the byte
+    table and past a signed byte; each call asserted to take the sweep,
+    as the kernel library reports it."""
+    assert long_dp.wide_plan(lp, band_w) == (
+        long_dp.SWEEP, 4 if lp <= 128 else 8, long_dp.SWEEP_WARPS)
+    lt = lp + 2 * band_w
+    pats, plens, texts, tlens, quals, ws, genome = _sweep_inputs(
+        lp * 7 + band_w, 64, lp, band_w, lt, atype)
+    kw = dict(scheme=(BIG if big else SCHEMES)[atype], atype=atype,
+              band_w=band_w)
+    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+    dev = [a.to(cuda) for a in cpu]
+    # packed windows end at the window, as the mapper's do
+    ptl = np.minimum(tlens, lt)
+    gw = banded_dp.pack_genome_words(genome)
+    banded_dp.reset_launch_counts()
+    got = banded_dp.banded_score(*dev, **kw)
+    got3 = banded_dp.banded_score_packed(
+        dev[0], dev[1], gw.to(cuda), torch.from_numpy(ws).to(cuda),
+        torch.from_numpy(ptl).to(cuda), dev[4], **kw)
+    torch.cuda.synchronize()
+    assert long_dp.launch.launches == 2
+    assert long_dp.launch.sweep_launches == 2
+    want = banded_score_batch(*cpu, **kw)
+    want3 = banded_dp.banded_score_packed(
+        cpu[0], cpu[1], gw, torch.from_numpy(ws), torch.from_numpy(ptl),
+        cpu[4], **kw)
+    assert (want["score"] > -(1 << 29)).float().mean() > 0.5
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), ("symbols", k)
+        assert torch.equal(got3[k].cpu(), want3[k]), ("packed", k)
+
+
+#: (Lp, band_w) on each side of every edge of wide_plan: the group
+#: kernel's widest band, the sweep at 4 and 8 rows a lane, the block
+#: kernel past Lp 256 (through banded_score to Lp 512, banded_score_long
+#: past it)
+_TIER_CASES = [(128, 63), (128, 64), (129, 64), (256, 971), (257, 64),
+               (512, 530), (2016, 200), (2048, 100)]
+
+
+@pytest.mark.parametrize("lp,band_w", _TIER_CASES,
+                         ids=[f"lp{a}_w{b}" for a, b in _TIER_CASES])
+@pytest.mark.parametrize("atype", list(AlignmentType),
+                         ids=[a.name.lower() for a in AlignmentType])
+def test_k4_score_tier_by_shape(cuda, atype, lp, band_w):
+    """K4's score calls on either side of each edge of wide_plan, through
+    the entry points the mapper calls (banded_score, and
+    banded_score_long past Lp 512), bit for bit against the plain
+    version; the tier the kernel library reports it launched (the sweep
+    or not, launch.sweep_launches) is the one the Python plan gives."""
+    tier = long_dp.wide_plan(lp, band_w)[0]
+    pats, plens, texts, tlens, quals, _, _ = _sweep_inputs(
+        band_w + lp, 40 if lp <= 512 else 12, lp, band_w, lp + 2 * band_w,
+        atype)
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens, quals)]
+    dev = [a.to(cuda) for a in cpu]
+    entry = (banded_dp.banded_score if lp <= 512
+             else long_dp.banded_score_long)
+    banded_dp.reset_launch_counts()
+    got = entry(*dev, **kw)
+    torch.cuda.synchronize()
+    assert long_dp.launch.launches == 1
+    assert long_dp.launch.sweep_launches == int(tier == long_dp.SWEEP)
+    want = banded_score_batch(*cpu, **kw)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+#: every Lp and band_w of tests/test_torch_long_dp.py's WIDE_PLAN_TABLE,
+#: and the band's reach on either side
+_PLAN_LPS = (1, 128, 129, 160, 256, 257, 512, 600, 1025, 2016, 2049,
+             10_000)
+_PLAN_WS = (-1, 0, 63, 64, 100, 128, 512, 530, 971, 1023, 1024, 5000)
+
+
+def test_k4_wide_plan_matches_python(cuda):
+    """The C entry k4_wide_plan (the plan K4's score entries launch by)
+    equals long_dp.wide_plan at every (Lp, band_w) of _PLAN_LPS x
+    _PLAN_WS, and refuses the bands the Python plan raises on."""
+    import ctypes
+
+    from nvbio_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for lp in _PLAN_LPS:
+        for w in _PLAN_WS:
+            plan = (ctypes.c_int * 3)()
+            rc = lib.k4_wide_plan(lp, w, plan)
+            try:
+                want = long_dp.wide_plan(lp, w)
+            except ValueError:
+                assert rc != 0, (lp, w)
+                continue
+            assert rc == 0 and tuple(plan) == want, (lp, w, tuple(plan))
 
 
 def test_k2_local_at_the_all_mappings_shape(cuda):

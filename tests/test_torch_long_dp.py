@@ -131,6 +131,56 @@ def test_k4_plain_matches_jax_k4(lp, band_w, atype):
                ) > 2 * ok.sum()  # the walks cross gaps
 
 
+@pytest.mark.parametrize("atype", ATYPES, ids=IDS)
+@pytest.mark.parametrize("band_w", [100, 300])
+def test_k4_plain_matches_jax_k4_past_128_cells(band_w, atype):
+    """The plain version at bands past 128 cells, the shapes K4's column
+    sweep and block tiers take on CUDA (Lp 520 at band_w 100 and 300, 4
+    lanes), against the JAX K4 score in interpret mode: every output
+    equal, scores below the floor included."""
+    arrays = [a[:4] for a in _long_batch(520, band_w, band_w + 7, atype)]
+    kw = dict(scheme=SCHEMES[atype], atype=atype, band_w=band_w)
+    got = long_dp.banded_score_long(*[torch.from_numpy(a) for a in arrays],
+                                    **kw)
+    want = banded_score_long_pallas(
+        *[jnp.asarray(a) for a in arrays], scheme=JScheme(
+            **SCHEMES[atype].__dict__), atype=JAType(atype.value),
+        band_w=band_w, interpret=True, tile=128)
+    assert (np.asarray(want["score"]) > -(1 << 29)).sum() >= 3
+    for k in ("score", "p_end", "t_end"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      k)
+
+
+#: (Lp, band_w) -> K4's score tier, rows a lane and warps a block
+#: (``long_dp.wide_plan``); tests/test_torch_cuda.py holds the C entry
+#: ``k4_wide_plan`` equal to the Python plan over every Lp and band_w
+#: named here
+_SWEEP4, _SWEEP8 = (long_dp.SWEEP, 4, 8), (long_dp.SWEEP, 8, 8)
+_BLOCK, _GROUP = (long_dp.BLOCK, 0, 0), (long_dp.GROUP, 0, 0)
+WIDE_PLAN_TABLE = {
+    (1, 64): _SWEEP4, (128, 64): _SWEEP4, (128, 530): _SWEEP4,
+    (128, 1023): _SWEEP4, (129, 64): _SWEEP8, (160, 530): _SWEEP8,
+    (256, 971): _SWEEP8, (257, 64): _BLOCK, (257, 128): _BLOCK,
+    (512, 530): _BLOCK, (1025, 512): _BLOCK, (2016, 530): _BLOCK,
+    (2049, 971): _BLOCK, (10_000, 100): _BLOCK, (128, 63): _GROUP,
+    (600, 0): _GROUP, (2016, 63): _GROUP}
+
+
+def test_wide_plan_table():
+    """K4's score tiers by shape (``long_dp.wide_plan``, mirrored by the
+    C entry ``k4_wide_plan``, which the CUDA tests hold equal): the group
+    kernel to 128 cells; past them the column sweep on one warp an
+    alignment (8 a block) at 4 rows a lane to Lp 128 and 8 to 256 (the PE
+    --local rescue on 100 and 150 bp mates), else the block kernel (for
+    symbol and packed windows alike); ValueError past 2 048 cells."""
+    for (lp, band_w), want in WIDE_PLAN_TABLE.items():
+        assert long_dp.wide_plan(lp, band_w) == want, (lp, band_w)
+    for band_w in (-1, 1024, 5000):
+        with pytest.raises(ValueError, match="2048 cells"):
+            long_dp.wide_plan(128, band_w)
+
+
 def test_route_table():
     """The kernel a call launches on CUDA, by pattern length and band:
     K4 past LONG_THRESHOLD rows or past K1-K3's 64-cell band."""
