@@ -97,8 +97,17 @@ failure:
    kernel), the device walk over the kernel's flags against the host
    walk; times and GCUPS; both score kernels against the plain version
    and timed at narrower bands and other shapes (K5_THRESHOLD_SHAPES);
-10. K6 against its plain version at 2^19 x 100 bp and 8192 x 1000 bp
-   (32 words), GLOBAL and SEMI_GLOBAL; times and GCUPS;
+10. K6 against its plain version at MYERS_SHAPES: 2^19 x 100 bp (the
+   thread tier), 8192 x 1000 bp (32 words) and long_tier_bench's 128 x 8
+   kb, 128 x 16 kb and 64 x 32 kb (the warp tier; held on 8 lanes of
+   1 024 columns with plens on word, lane and strip edges and poly-A
+   runs), GLOBAL and SEMI_GLOBAL, and SEMI_GLOBAL on every lane of the
+   full shape (the plain version's timed call), each shape driven once
+   at full size with the counts reset just before and its tier asserted
+   (the warp tier past 8 words, launches on it counted by
+   myers.warp_launches);
+   times, GCUPS, the plain version's time (one call at the long shapes),
+   the warp tier's block, registers and warps an SM;
 10b. K5's matrix mode at protein_sw's shapes (phase 24's seeded
    proteins, band_w = max(Lq, Lt)): the strided 2 048-pair subset
    against its plain version in all three alignment types (row
@@ -239,7 +248,8 @@ cells, K4_wide, K5 as its score, its flag and its matrix-score entry
 points, the last also as its full-band tier) as JSON, with the launches
 of the path that runs each (K2, K3: the short-read run; K4: the
 long-read run; K4_wide: the PE --local run's launches on the sweep;
-K1, K5, K6: sw_benchmark; K5 with
+K1, K5, K6: sw_benchmark; K6 on the warp tier, K6_32w and the long
+rows: the Myers phase's full-size calls; K5 with
 flags: the pass-3 run; K7: the int16 opt-in phase; K5_matrix and
 K5_matrix_full: the protein_sw run; the modes' runs must launch theirs
 too), the time
@@ -299,8 +309,20 @@ N_LONG, LONG_LEN, LONG_CPU = 20_000, 2_000, 128
 # sw_benchmark's wide batch (nvbio_tpu/tools/sw_benchmark.py:153-162):
 # 128 lanes of 4000 bp at band_w 2000; K5's flags are checked on 8
 WIDE_NB, WIDE_DIRS_NB, WIDE_LP, WIDE_W = 128, 8, 4_000, 2_000
-# Myers: sw_benchmark's 2^19 x 100 bp, and a 32-word pattern length
-MYERS_SHAPES = ((1 << 19, 100, 130), (8_192, 1_000, 1_060))
+# Myers by row name: sw_benchmark's 2^19 x 100 bp (the thread tier), a
+# 32-word pattern length (sw_benchmark --read-len 1000's W) and
+# benchsuite/long_tier_bench.py's long patterns (Lt = Lp + 1 024, its
+# "32 kb+" rows) on the warp tier
+MYERS_SHAPES = {"K6": (1 << 19, 100, 130), "K6_32w": (8_192, 1_000, 1_060),
+                "K6_8k": (128, 8_192, 9_216),
+                "K6_16k": (128, 16_384, 17_408),
+                "K6_32k": (64, 32_768, 33_792)}
+# patterns past MYERS_HOLD_LP symbols are held on MYERS_HOLD lanes of
+# MYERS_HOLD_LT text columns (the plain loop takes ~20 s a call at
+# 33 792 columns), with ragged plens on word, lane and strip edges; their
+# plain version is timed on one call at the full shape, which holds the
+# kernel's SEMI_GLOBAL result on every lane and column
+MYERS_HOLD_LP, MYERS_HOLD, MYERS_HOLD_LT = 1_000, 8, 1_024
 # K7's shapes: the extension batch's row (band_w 15), a mid band (127
 # cells: 100 bp windows at the long-read path's band_w 63, inside the
 # int16 guard), a wide band at Lp 16 (1401 cells, 717 of them live), and
@@ -372,13 +394,21 @@ GOTOH_OPS, GOTOH_FLAG_OPS = 10, 18
 # took 4 (two compares, two selects), F and E 3 each: every row keeps
 # its share of it beside the new one, so shares compare across records
 YARD_OPS, YARD_FLAG_OPS = 15, 23
-# Myers (K6), per word of ceil(plen / 32) and text column < tlen: Peq
-# select 1, xv 1, add with carry 3, xh 2, ph 3, mh 1, shifts with carry
-# 6, VP 3, VN 1; per column: the end bits 2, the distance 2, the best
-# distance and its column 3.  The kernel's masks to plen bits are not
-# counted: bits above the end bit never reach it (adds carry upward,
-# shifts go left), so the function does not need them.
-MYERS_WORD_OPS, MYERS_COL_OPS = 21, 7
+# Myers (K6), per word of ceil(plen / 32) and text column < tlen, as the
+# least instruction count on sm_90a, where any function of three words
+# is one LOP3, a shift with the carried-in top bit one funnel shift
+# (SHF) and an add with carry in and out one IADD3: Peq select 1, xv =
+# eq | vn 1, eq & vp 1, the add with carry 1, xh = (sum ^ vp) | eq 1,
+# ph = vn | ~(xh | vp) 1, mh = vp & xh 1, the two shifts with carry 2,
+# VP = mh' | ~(xv | ph') 1, VN = ph' & xv 1; per column: the end bits 2,
+# the distance 1 (d + ph bit - mh bit, one IADD3), the best distance and
+# its column 3.  The kernel's masks to plen bits are not counted: bits
+# above the end bit never reach it (adds carry upward, shifts go left),
+# so the function does not need them.
+MYERS_WORD_OPS, MYERS_COL_OPS = 11, 6
+# the yardstick of the earlier records (21, 7), one operation for each
+# two-input operation: every K6 row keeps its share of it beside the new
+MYERS_YARD_WORD_OPS, MYERS_YARD_COL_OPS = 21, 7
 
 
 class _BlockJax:
@@ -412,6 +442,9 @@ K7_BUILD = []
 #: k4_sweep_ptxas of the build (empty for a cached build or a package
 #: without K4's sweep)
 K4_SWEEP_BUILD = []
+#: k6_ptxas of the build (empty for a cached build or a package without
+#: K6's warp tier)
+K6_BUILD = []
 
 
 def bound(ops, nbytes, per_lane=1):
@@ -551,6 +584,14 @@ def phase_build():
                 f"{t.get('registers')} registers, spill stores "
                 f"{t.get('spill_stores')} B, loads {t.get('spill_loads')} B")
         K4_SWEEP_BUILD[:] = sweep
+        K6_BUILD[:] = k6_ptxas(_build.build_info.get("ptxas_by_source", {})
+                               .get("myers.cu", ""))
+        for t in K6_BUILD:
+            log(f"[build] K6 warp tier, {t['k']} words a lane, "
+                f"{'GLOBAL' if t['global'] else 'SEMI_GLOBAL'}: "
+                f"{t.get('registers')} registers, {t.get('smem')} B shared,"
+                f" spill stores {t.get('spill_stores')} B, loads "
+                f"{t.get('spill_loads')} B")
         K7_BUILD[:] = k7_ptxas(_build.build_info.get("ptxas_by_source", {})
                                .get("banded_gotoh16.cu", ""))
         for t in K7_BUILD:
@@ -590,6 +631,69 @@ def k4_sweep_ptxas(text):
         if m and cur is not None:
             cur["registers"] = int(m[1])
     return out
+
+
+def k6_ptxas(text):
+    """Registers, shared bytes and spills of each instantiation of K6's
+    warp tier (k6_warp_kernel<K, GLOBAL>) from nvcc's ptxas report of
+    myers.cu."""
+    import re
+
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            g = re.search(r"k6_warp_kernelILi(\d+)ELb([01])E", m.group(1))
+            cur = None if not g else {"k": int(g[1]), "global": g[2] == "1"}
+            if cur:
+                out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m[1]) if m else 0
+    return out
+
+
+def k6_occupancy(nb, lp):
+    """The tier a K6 call of this shape takes, as the C entry k6_plan
+    reports it, and on the warp tier its words a lane, strips, warps a
+    block, grid, the registers of its SEMI_GLOBAL instantiation (phase 2)
+    and the warps an SM it keeps resident (sm_blocks) and those this
+    call's grid fills; None for a package without the plan (the parent of
+    a --turns run)."""
+    import ctypes
+
+    from nvbio_tpu_torch.ops import _build, myers
+
+    if not hasattr(myers, "myers_plan"):
+        return None
+    plan = (ctypes.c_int * 3)()
+    if _build.library().k6_plan(lp, plan):
+        fail(f"k6_plan refused Lp {lp}")
+    tier, k, strips = plan
+    if tier != myers.WARP:
+        return {"tier": "thread"}
+    per_block = 4 if strips == 1 else 1  # alignments a block (WARP_WPB)
+    warps = 4 if strips == 1 else strips
+    grid = -(-nb // per_block)
+    out = {"tier": "warp", "words_per_lane": k, "strips": strips,
+           "warps_per_block": warps, "grid": grid}
+    match = [t for t in K6_BUILD if (t["k"], t["global"]) == (k, False)]
+    if not match or "registers" not in match[0]:
+        return out
+    t = match[0]
+    blocks = sm_blocks(t["registers"], t["smem"], warps)
+    return dict(out, registers=t["registers"], smem=t["smem"],
+                spill_stores=t.get("spill_stores"),
+                blocks_per_sm=blocks, warps_per_sm=blocks * warps,
+                sms_busy=min(grid, N_SMS),
+                warps_per_sm_achieved=min(blocks, -(-grid // N_SMS)) * warps)
 
 
 def k7_ptxas(text):
@@ -696,14 +800,16 @@ def group_ptxas(by_source):
     return tiers
 
 
-def cuda_ms(torch, fn, reps, queued=True):
-    """Mean milliseconds per call, by CUDA events, after one warm-up.  A
+def cuda_ms(torch, fn, reps, queued=True, warm=True):
+    """Mean milliseconds per call, by CUDA events, after one warm-up
+    (none with ``warm=False``).  A
     ~10 ms sleep kernel ahead of the start event lets the host queue the
     calls first, so a call shorter than its host-side launch cost is
     timed on the device, back to back.  With ``queued=False`` the calls
     start as the host issues them, so the time is the larger of the
     kernel's and the host's cost a call (the launch included)."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     if queued:
         torch.cuda._sleep(20_000_000)
@@ -1832,62 +1938,118 @@ def k5_threshold(torch, np, wavefront_dp, rng):
     return res
 
 
-def phase_k6(torch, np):
-    """K6 against its plain version at sw_benchmark's shape and at a
-    32-word pattern length, GLOBAL and SEMI_GLOBAL."""
+def myers_inputs(np, rng, nb, lp, lt):
+    """Patterns planted mid-text with 3 % substitutions (N included),
+    ragged and zero lengths; past MYERS_HOLD_LP the held lanes' plens lie
+    on word, lane and strip edges (1, 33, 65, 1 025, 2 049 and 4 097
+    symbols; the full and a ragged length) and lanes 0 and 3 carry a
+    poly-A run from symbol 700 to 3 000 that the text never matches, so
+    the add's all-ones propagate crosses lanes and strips."""
+    pats = rng.integers(0, 4, (nb, lp)).astype(np.int8)
+    texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
+    off = (lt - lp) // 2
+    texts[:, off:off + lp] = pats
+    mut = rng.random(texts.shape) < 0.03
+    texts[mut] = rng.integers(0, 5, int(mut.sum()))
+    plens = np.full(nb, lp, np.int32)
+    tlens = np.full(nb, lt, np.int32)
+    plens[:3], tlens[3:5] = (0, 1, lp // 3), (0, lt // 2)
+    if lp > MYERS_HOLD_LP:
+        plens[:MYERS_HOLD] = (lp, 1, 33, lp - 33, 4_097, 2_049, 1_025, 65)
+        for b in (0, 3):
+            pats[b, 700:3_000] = 0
+            texts[b] = np.where(texts[b] == 0, 2, texts[b])
+    return pats, plens, texts, tlens
+
+
+def phase_k6(torch, np, only=None):
+    """K6 against its plain version at MYERS_SHAPES (those ``only``
+    names, if given), GLOBAL and SEMI_GLOBAL (past MYERS_HOLD_LP on the
+    held cut, and SEMI_GLOBAL also at the full shape); each shape driven
+    once at full size with the counts reset just before, its tier
+    asserted (the warp tier past 8 words) and its launches kept; times
+    and bounds by row name."""
     from nvbio_tpu_torch.alignment.myers import myers_edit_distance_batch
     from nvbio_tpu_torch.alignment.types import AlignmentType
-    from nvbio_tpu_torch.ops import myers
+    from nvbio_tpu_torch.ops import banded_dp, myers
 
     dev = torch.device(DEV)
     rng = np.random.default_rng(SEED + 7)
-    out, worst = {}, 0
-    for nb, lp, lt in MYERS_SHAPES:
-        pats = rng.integers(0, 4, (nb, lp)).astype(np.int8)
-        texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
-        off = (lt - lp) // 2
-        texts[:, off:off + lp] = pats
-        mut = rng.random(texts.shape) < 0.03
-        texts[mut] = rng.integers(0, 5, int(mut.sum()))
-        plens = np.full(nb, lp, np.int32)
-        tlens = np.full(nb, lt, np.int32)
-        plens[:3], tlens[3:5] = (0, 1, lp // 3), (0, lt // 2)
-        args = [torch.from_numpy(a).to(dev)
-                for a in (pats, plens, texts, tlens)]
+    out = {}
+    for name, (nb, lp, lt) in MYERS_SHAPES.items():
+        if only is not None and name not in only:
+            continue
+        arrays = myers_inputs(np, rng, nb, lp, lt)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
         words = (lp + 31) // 32
-        for atype in (AlignmentType.GLOBAL, AlignmentType.SEMI_GLOBAL):
-            def k6():
-                return myers.myers(*args, atype=atype)
-
-            def p6():
-                return myers_edit_distance_batch(*args, atype=atype)
-
-            err = max_abs_err(torch, list(k6()), list(p6()))
+        sg = AlignmentType.SEMI_GLOBAL
+        banded_dp.reset_launch_counts()
+        got = myers.myers(*args, atype=sg)  # the phase's call, full shape
+        torch.cuda.synchronize()
+        launches = myers.myers.launches
+        warp = getattr(myers.myers, "warp_launches", None)  # (parent: none)
+        if launches != 1 or warp not in (None, int(words > 8)):
+            fail(f"K6 at {nb} x {lp}: {launches} launches, {warp} on the "
+                 f"warp tier (expected 1, {int(words > 8)})")
+        held = args
+        if lp > MYERS_HOLD_LP:
+            held = [args[0][:MYERS_HOLD], args[1][:MYERS_HOLD],
+                    args[2][:MYERS_HOLD, :MYERS_HOLD_LT].contiguous(),
+                    args[3][:MYERS_HOLD].clamp(max=MYERS_HOLD_LT)]
+        err = 0
+        for atype in (AlignmentType.GLOBAL, sg):
+            err = max(err, max_abs_err(
+                torch, list(myers.myers(*held, atype=atype)),
+                list(myers_edit_distance_batch(*held, atype=atype))))
             if err:
                 fail(f"K6 differs from its plain version ({atype.name}, "
-                     f"Lp {lp}): max_abs_err {err}")
-            worst = max(worst, err)
-            if atype != AlignmentType.SEMI_GLOBAL:
-                continue
-            ms, pms = cuda_ms(torch, k6, 10), cuda_ms(torch, p6, 1)
-            cells = nb * lp * lt  # full-matrix cells (sw_benchmark.py:93)
-            # the words and columns the function needs, lane by lane
-            pl = plens.astype(np.int64)
-            cols = np.where(pl > 0, tlens.clip(0, lt), 0).astype(np.int64)
-            work = int((cols * ((pl + 31) // 32)).sum())
-            ops = MYERS_WORD_OPS * work + MYERS_COL_OPS * int(cols.sum())
-            bms, by = bound(ops, dp_bytes(*args, out_bytes=8 * nb))
-            out[f"{nb}x{lp}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
-                                 "bound_by": by, "word_columns": work,
-                                 "gcups": cells / ms / 1e6,
-                                 "plain_gcups": cells / pms / 1e6}
-            log(f"[k6] {nb} x {lp} bp ({words} words): GLOBAL and "
-                "SEMI_GLOBAL bit-identical to the plain version; SEMI_GLOBAL"
-                f" kernel {ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS, "
-                f"full-matrix cells), plain {pms:.1f} ms; bound {bms:.3f} ms"
-                f" ({by})")
-    tool_shape = out[f"{MYERS_SHAPES[0][0]}x{MYERS_SHAPES[0][1]}"]
-    return dict(tool_shape, max_abs_err=worst, shapes=out)
+                     f"{nb} x {lp}): max_abs_err {err}")
+
+        def k6():
+            return myers.myers(*args, atype=sg)
+
+        want = []
+
+        def p6():
+            want[:] = myers_edit_distance_batch(*args, atype=sg)
+
+        ms = cuda_ms(torch, k6, 10 if lp <= MYERS_HOLD_LP else 3)
+        pms = cuda_ms(torch, p6, 1, warm=lp <= MYERS_HOLD_LP)
+        # SEMI_GLOBAL on every lane and column of the full shape: the
+        # phase's call against the plain version's timed call
+        full = max_abs_err(torch, list(got), want)
+        if full:
+            fail(f"K6 differs from its plain version (SEMI_GLOBAL, {nb} x "
+                 f"{lp}, full shape): max_abs_err {full}")
+        err = max(err, full)
+        cells = nb * lp * lt  # full-matrix cells (sw_benchmark.py:93)
+        # the words and columns the function needs, lane by lane
+        pl = arrays[1].astype(np.int64)
+        cols = np.where(pl > 0, arrays[3].clip(0, lt), 0).astype(np.int64)
+        work = int((cols * ((pl + 31) // 32)).sum())
+        nbytes = dp_bytes(*args, out_bytes=8 * nb)
+        bms, by = bound(MYERS_WORD_OPS * work
+                        + MYERS_COL_OPS * int(cols.sum()), nbytes)
+        yard = bound(MYERS_YARD_WORD_OPS * work
+                     + MYERS_YARD_COL_OPS * int(cols.sum()), nbytes)[0]
+        occ = k6_occupancy(nb, lp)
+        out[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                     "bound_by": by, "yard_bound_ms": yard,
+                     "word_columns": work,
+                     "gcups": cells / ms / 1e6,
+                     "plain_gcups": cells / pms / 1e6, "max_abs_err": err,
+                     "launches": launches, "warp_launches": warp,
+                     "occupancy": occ}
+        on = ("all lanes" if held is args else
+              f"{MYERS_HOLD} lanes of {MYERS_HOLD_LT} columns, SEMI_GLOBAL "
+              "also on all lanes")
+        log(f"[k6] {name}: {nb} x {lp} bp ({words} words), Lt {lt}: GLOBAL"
+            f" and SEMI_GLOBAL bit-identical to the plain version on {on}; "
+            f"{occ}; SEMI_GLOBAL kernel {ms:.4f} ms ({cells / ms / 1e6:.1f}"
+            f" GCUPS, full-matrix cells), plain {pms:.1f} ms; bound "
+            f"{bms:.4f} ms ({by}), share {bms / ms:.3f} (yardstick "
+            f"{yard / ms:.3f})")
+    return out
 
 
 def phase_sw_benchmark(torch):
@@ -1911,6 +2073,8 @@ def phase_sw_benchmark(torch):
     if rc != 0 or any(launches[k] < 1 for k in ("K1", "K4", "K5", "K6")):
         fail(f"sw_benchmark --long did not launch K1, K4, K5 and K6: "
              f"rc {rc}, launches {launches}")
+    if banded_dp.KERNELS["K6"].warp_launches:  # 100 bp: W = 4
+        fail("sw_benchmark --long: a K6 call left the thread tier")
     if sweep != launches["K5"]:  # gotoh_wide's and wide_cigar's pass 1
         fail(f"sw_benchmark --long: {launches['K5'] - sweep} of its "
              f"{launches['K5']} K5 calls missed the banded tier")
@@ -4784,8 +4948,8 @@ def kernel_phases(torch, np, result, only=None):
                              else {})
     if run("K5", "K5_dirs"):
         k.update(phase_k5(torch, np))
-    if run("K6", "K6_32w"):
-        k["K6"] = phase_k6(torch, np)
+    if run(*MYERS_SHAPES):
+        k.update(phase_k6(torch, np, only))
     torch.cuda.empty_cache()
     if run("K5_matrix", "K5_matrix_full"):
         k.update(phase_k5_matrix(torch, np))
@@ -4808,7 +4972,7 @@ def timed_rows(result):
     k, ps, bk = result["kernels"], result["path_shapes"], result["bench_k1"]
     rows = {n: k[n] for n in ("K1", "K2", "K3", "K4", "K4_wide",
                               "K4_wide_semi", "K4_wide_150", "K5",
-                              "K5_dirs", "K6", "K5_matrix",
+                              "K5_dirs", *MYERS_SHAPES, "K5_matrix",
                               "K5_matrix_full") if n in k}
     rows.update(bk)
     if "K4" in k:
@@ -4816,9 +4980,6 @@ def timed_rows(result):
         rows["K4_dirs"] = {"ms": k4["dirs_ms"], "bound_ms": k4["dirs_bound_ms"],
                            "yard_bound_ms": k4["dirs_yard_bound_ms"]}
     rows.update(ps)
-    if "K6" in k:
-        rows["K6_32w"] = k["K6"]["shapes"][
-            f"{MYERS_SHAPES[1][0]}x{MYERS_SHAPES[1][1]}"]
     if "K7" in k:
         rows.update({K7_ROWS[n]: k["K7"][n] for n in K7_SHAPES
                      if n in k["K7"]})
@@ -4833,7 +4994,7 @@ def timed_rows(result):
     occ.update({n: k[n]["occupancy"] for n in ("K4_wide", "K4_wide_semi",
                                                 "K4_wide_150") if n in k})
     occ.update({n: k[n]["occupancy"] for n in ("K5_matrix", "K5_matrix_full",
-                                                "K5_dirs")
+                                                "K5_dirs", *MYERS_SHAPES)
                 if n in k and "occupancy" in k[n]})
     occ.update({K7_ROWS[n]: k["K7"][n]["occupancy"] for n in K7_SHAPES
                 if "K7" in k and n in k["K7"]})
@@ -5011,11 +5172,15 @@ def main():
                  "K4_wide": result["pe_local"]["sweep_launches"]},
              "flagged SE run": result["io_flags"]["launches"],
              "flagged PE run": result["io_flags"]["pe_launches"],
-             "protein_sw run": result["protein"]["launches"]}
+             "protein_sw run": result["protein"]["launches"],
+             "Myers phase (warp tier)": {
+                 n: result["kernels"][n]["warp_launches"]
+                 for n in MYERS_SHAPES if n != "K6"}}
     csrc = "nvbio_tpu_torch/ops/csrc/"
     kernels = []
     # the kernel symbol each row times, in its source
-    symbols = {"K4_wide": "k4_sweep_kernel",
+    symbols = {"K4_wide": "k4_sweep_kernel", "K6": "k6_kernel",
+               **{n: "k6_warp_kernel" for n in MYERS_SHAPES if n != "K6"},
                "K5": "k5_band_kernel", "K5_dirs": "k5_band_dirs_kernel",
                "K7": "k7_group_kernel",
                "K5_matrix": "k5_full_kernel",
@@ -5038,6 +5203,9 @@ def main():
              "nvbio_tpu/ops/wavefront_dp.py:321", "pass 3"),
             ("K6", "myers.cu", "nvbio_tpu/ops/myers_pallas.py:187",
              "sw_benchmark --long"),
+            *((n, "myers.cu", "nvbio_tpu/ops/myers_pallas.py:187",
+               "Myers phase (warp tier)")
+              for n in MYERS_SHAPES if n != "K6"),
             ("K7", "banded_gotoh16.cu", "nvbio_tpu/ops/banded_dp.py:117",
              "int16 opt-in phase"),
             ("K5_matrix", "wavefront_gotoh.cu",

@@ -70,13 +70,14 @@ _SIGNATURES = {
     "k5_wavefront_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
     # the same arguments, band_w >= max(lp, lt) (the full-band tier)
     "k5_full_score_matrix": [_P] * 4 + [_I] * 9 + [_P, _I, _P, _P, _P],
-    # pats, plens, texts, tlens, nb, lp, lt, global, scratch, out, stream
+    # pats, plens, texts, tlens, nb, lp, lt, global, out, tier (a host
+    # int: the tier taken), stream
     "k6_myers": [_P] * 4 + [_I] * 4 + [_P] * 3,
     # pats, quals, plens, texts, tlens, nb, lp, lt, band_w, k_lo, atype,
     # scheme..., out, stream
     "k7_banded_score16": _SCORE[:9] + [_I] + _SCORE[9:],
 }
-#: entry points called directly, with no stream: sizes, warps, K7's plan
+#: entry points called directly, with no stream: sizes, warps, plans
 _SIZES = {
     "k5_state_words": ([_I], ctypes.c_int),  # band_w
     # nb, lp, band_w, atype
@@ -94,7 +95,8 @@ _SIZES = {
     # cudaError_t
     "k4_wide_plan": ([_I] * 2 + [_P], ctypes.c_int),
     "k4_sweep_warps_per_sm": ([_I] * 3, ctypes.c_int),  # lp, band_w, atype
-    "k6_scratch_words": ([_I, _I], ctypes.c_longlong),  # nb, lp
+    # lp, plan (3 ints: tier, words a lane, strips): a cudaError_t
+    "k6_plan": ([_I, _P], ctypes.c_int),
     # nb, lp, band_w, k_lo, match, mm_min, mm_max, n_penalty, plan (6
     # ints): a cudaError_t
     "k7_plan": ([_I] * 8 + [_P], ctypes.c_int),

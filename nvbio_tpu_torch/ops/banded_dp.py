@@ -340,6 +340,7 @@ def reset_launch_counts() -> None:
     wavefront_dp.wavefront_score.sweep_launches = 0
     wavefront_dp.wavefront_dirs.sweep_launches = 0
     long_dp.launch.sweep_launches = 0
+    myers.myers.warp_launches = 0
 
 
 reset_launch_counts()

@@ -5,9 +5,9 @@ genome's end), K4 for long patterns (Lp 2016-2017, its group tiers and
 the block-per-alignment tiers above 128 cells) and for the wide bands
 (band_w 32, 63) that route() sends it from K1-K3-shaped calls, K5 (score
 and flags, shared-memory and scratch state; the formula score's banded
-column-sweep tier at every strip edge, and its routing), K6 (register and
-scratch words), K7 (every group tier edge, both substitution forms), the
-two-pass wide-band CIGAR,
+column-sweep tier at every strip edge, and its routing), K6 (its thread
+and warp tiers, and the plan), K7 (every group tier edge, both
+substitution forms), the two-pass wide-band CIGAR,
 sw_benchmark, the golden SE and PE SAM under --device cuda, paired-end
 map_reads (CUDA SAM = CPU SAM), -S *.bam (CUDA BAM = CPU BAM), and the
 alignment modes: K4 at the LOCAL rescue's window-wide band, K2 at -a's
@@ -852,27 +852,68 @@ def test_k5_band_tier_routing(cuda, atype):
     assert torch.equal(got_d.cpu(), want_d)
 
 
-@pytest.mark.parametrize("lp", [20, 100, 256, 257, 1000])
+def _k6_inputs(seed, nb, lp, lt):
+    """Patterns (N included) planted in their texts at offset 11, ragged
+    and zero lengths, and on every third lane poly-A runs the text never
+    matches, so that the add's all-ones propagate crosses lanes and
+    strips."""
+    rng = np.random.default_rng(seed)
+    pats = rng.integers(0, 5, (nb, lp)).astype(np.int8)
+    texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
+    n = min(lp, lt - 11)
+    texts[::2, 11:11 + n] = np.where(pats[::2, :n] < 4, pats[::2, :n], 0)
+    for b in range(0, nb, 3):
+        lo = int(rng.integers(0, max(lp - 64, 1)))
+        hi = min(lp, lo + int(rng.integers(64, 2048)))
+        pats[b, lo:hi] = 0
+        texts[b] = np.where(texts[b] == 0, 1 + texts[b] % 3, texts[b])
+    plens = rng.integers(0, lp + 1, nb).astype(np.int32)
+    plens[:2] = (lp, 0)[:nb]
+    tlens = rng.integers(0, lt + 1, nb).astype(np.int32)
+    tlens[:1] = lt
+    return pats, plens, texts, tlens
+
+
+@pytest.mark.parametrize("lp", [20, 100, 256, 257, 288, 1000, 1024, 1025,
+                                2049, 8193, 16385, 32768, 32769, 144640])
 @pytest.mark.parametrize("atype", [AlignmentType.SEMI_GLOBAL,
                                    AlignmentType.GLOBAL],
                          ids=["semi_global", "global"])
 def test_k6_matches_plain(cuda, atype, lp):
-    """K6 with its words in registers (to 256 bp) and in scratch."""
+    """K6 on its thread tier (to 8 words, 256 bp) and its warp tier: one
+    warp an alignment to 32 words, then strips of 2 and of 8 words a lane
+    (from 16 385 bp, 8 words a lane on 3 strips, on 4 lanes of 512
+    columns, to the guard's 4 520 words), each call asserted on the tier
+    myers_plan gives, against its plain version."""
     from nvbio_tpu_torch.alignment.myers import myers_edit_distance_batch
     from nvbio_tpu_torch.ops import myers
 
-    rng = np.random.default_rng(lp)
-    nb, lt = 300, lp + 40
-    pats = rng.integers(0, 5, (nb, lp)).astype(np.int8)
-    texts = rng.integers(0, 4, (nb, lt)).astype(np.int8)
-    texts[::2, 11:11 + lp] = np.where(pats[::2] < 4, pats[::2], 0)[:, :lt - 11]
-    plens = rng.integers(0, lp + 1, nb).astype(np.int32)
-    tlens = rng.integers(0, lt + 1, nb).astype(np.int32)
-    cpu = [torch.from_numpy(a) for a in (pats, plens, texts, tlens)]
+    nb, lt = (4, 512) if lp > 8193 else (300, lp + 40)
+    cpu = [torch.from_numpy(a) for a in _k6_inputs(lp, nb, lp, lt)]
+    banded_dp.reset_launch_counts()
     got = myers.myers(*[a.to(cuda) for a in cpu], atype=atype)
+    assert myers.myers.launches == 1
+    assert myers.myers.warp_launches == (myers.myers_plan(lp)[0]
+                                         == myers.WARP)
+    assert (myers.myers_plan(lp)[0] == myers.WARP) == (lp > 256)
     want = myers_edit_distance_batch(*cpu, atype=atype)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def test_k6_plan_matches_python(cuda):
+    """The C entry k6_plan (the plan k6_myers launches by) equals
+    myers.myers_plan at every W from 1 to the guard's 4 520 words."""
+    import ctypes
+
+    from nvbio_tpu_torch.ops import _build, myers
+
+    lib = _build.library()
+    for words in range(1, 4521):
+        lp = 32 * words
+        plan = (ctypes.c_int * 3)()
+        assert lib.k6_plan(lp, plan) == 0, lp
+        assert tuple(plan) == myers.myers_plan(lp), (lp, tuple(plan))
 
 
 def test_wide_cigar_pass3_on_cuda(cuda):
